@@ -10,6 +10,11 @@ import pytest
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (skips in a fixture without one)")
+
+
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0)
