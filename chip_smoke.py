@@ -9,13 +9,24 @@ Run from the root of a checkout. Phases, one line or block each:
 2. build   — nvcc builds every kernel from the sources in the checkout
              (with -Xptxas -v: registers and spills per kernel);
 3. kernels — each hand kernel against its plain PyTorch version on the card,
-             at every shape the CIFAR10 serving path gives it with 8 slots,
-             with kernel / plain / library times (CUDA events) and the bound
-             the shapes allow on an H100;
+             at every shape the CIFAR10 serving path (8 slots) and the
+             unfused pipeline (8 images) give it, with kernel / plain /
+             library times (CUDA events) and the bound the shapes allow on
+             an H100;
 4. serve   — spiking VGG9 at full CIFAR10 width, fp32 and int4, served by
              EngineCore + SNNRunner on the card: per-request checks, launch
              counts per engine step, and the same requests on the CPU's
-             plain path as the reference.
+             plain path as the reference;
+5. unfused — the pre-fusion pipeline (T in-kernel-gated spike_matmul +
+             lif_step launches per layer) at full CIFAR10 width, fp32 and
+             int4, on 8 mixed images: bit-identical to the fused pipeline on
+             the card, against itself on the CPU, launch counts, and fused
+             vs unfused forward ms (CUDA events);
+6. train   — surrogate-gradient BPTT of the full-width spiking VGG9, fp32
+             and int4 QAT, AdamW + warmup-cosine: one step's loss and
+             gradients on the card against the CPU on the same batch, then 5
+             steps at batch 32 (finite loss, median ms per step) and the
+             per-layer spikes of the trained weights.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero before it. Every per-shape row and serving figure also goes to
@@ -50,6 +61,15 @@ def bound(bytes_moved: float, flops: float):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def gated_flops(torch, occ, tm, tk, m, k, n) -> float:
+    """The fp32 operations a tile-gated product must do: 2·n for each real
+    (row, k) pair inside an occupied (tm x tk) tile of the [M_pad, K_pad]
+    spikes; padded rows, columns and output channels are left out."""
+    rows = (m - torch.arange(occ.shape[0], dtype=torch.float64) * tm).clamp(0, tm)
+    cols = (k - torch.arange(occ.shape[1], dtype=torch.float64) * tk).clamp(0, tk)
+    return 2.0 * n * float((occ.cpu().double() * rows[:, None] * cols[None, :]).sum())
 
 
 def cuda_ms(torch, fn, reps=20, warmup=3) -> float:
@@ -112,8 +132,8 @@ def check_spike_matmul(torch, shapes, gen):
               and occ[0].sum().item() == 0)
         occupied = int(occ.sum().item())
         nk = k_pad // bk
-        moved = 4 * (m * k_pad + k_pad * n_pad + m * n_pad) + m * nk + 4 * (m // bm) * nk
-        flops = 2.0 * occupied * bm * bk * n_pad
+        moved = 4 * (m * k + k * n + m * n) + m * nk + 4 * (m // bm) * nk
+        flops = gated_flops(torch, occ, bm, bk, m, k, n)
         b_ms, b_by = bound(moved, flops)
         rows.append(dict(
             shape=f"{name} M={m} K={k_pad} N={n_pad}", ok=ok, err=err, tol=tol,
@@ -183,6 +203,83 @@ def check_dense_conv_lif(torch, shape, steps, gen):
         bound_ms=b_ms, bound_by=b_by)]
 
 
+def unfused_shapes(cfg, batch):
+    """Per-timestep shapes of the unfused pipeline: (name, M_pad, K_pad,
+    N_pad, M, K, N) of each spiking conv's gated product, padded as
+    `spike_conv2d` pads them, and (name, n) of each of the 8 LIF launches'
+    flat length."""
+    from repro_torch.core.tiling import round_up
+    mm, lif = [], []
+    hw, cin = cfg.img_hw, cfg.conv_channels[0]
+    for s in cfg.stages[1:]:
+        if s == "MP":
+            hw //= 2
+            continue
+        m, k = batch * hw * hw, 9 * cin
+        mm.append((f"conv{len(mm) + 1}", round_up(m, min(256, round_up(m))),
+                   round_up(k), round_up(s), m, k, s))
+        lif.append((f"conv{len(lif) + 1}", m * s))
+        cin = s
+    lif += [("fc0", batch * cfg.fc_dim), ("fc1", batch * cfg.population)]
+    return mm, lif
+
+
+def check_spike_matmul_gated(torch, shapes, gen):
+    from repro_torch.kernels.spike_conv import ops as sc
+    tm, tk = sc.GATED_TILE_M, sc.GATED_TILE_K
+    rows = []
+    for name, m_pad, k_pad, n_pad, m, k, n in shapes:
+        # spikes and weights in the real region only, zero padding, as
+        # `spike_conv2d` hands them over
+        patches = torch.zeros((m_pad, k_pad), device="cuda")
+        patches[:m, :k] = (torch.rand((m, k), device="cuda", generator=gen) < 0.1).float()
+        patches[:tm] = 0.0                                   # an all-zero tile row
+        w2d = torch.zeros((k_pad, n_pad), device="cuda")
+        w2d[:k, :n] = torch.randn((k, n), device="cuda", generator=gen) * (2.0 / k) ** 0.5
+        out = sc.spike_matmul(patches, w2d)
+        ref = sc.spike_matmul_plain(patches, w2d)
+        mapped, _, _ = sc.spike_matmul_mapped(patches, w2d, block_m=128, block_k=128)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        tol = 1e-4 * max(1.0, ref.abs().max().item())
+        ok = err <= tol and torch.equal(out, mapped) and out[:tm].abs().max().item() == 0
+        occ = (patches.reshape(m_pad // tm, tm, k_pad // tk, tk) != 0).any(3).any(1)
+        moved = 4 * (m * k + k * n + m * n)
+        flops = gated_flops(torch, occ, tm, tk, m, k, n)
+        b_ms, b_by = bound(moved, flops)
+        rows.append(dict(
+            shape=f"{name} M={m_pad} K={k_pad} N={n_pad} (real {m}x{k}x{n})", ok=ok, err=err,
+            tol=tol, bytes=moved, flops=flops,
+            skip=1 - int(occ.sum()) / occ.numel(),
+            ms=cuda_ms(torch, lambda: sc.spike_matmul(patches, w2d)),
+            plain_ms=cuda_ms(torch, lambda: sc.spike_matmul_plain(patches, w2d)),
+            library_ms=cuda_ms(torch, lambda: torch.matmul(patches, w2d)),
+            bound_ms=b_ms, bound_by=b_by))
+    return rows
+
+
+def check_lif_step(torch, shapes, gen):
+    from repro_torch.kernels.lif_step import ops as lif
+    rows = []
+    for name, n in shapes:
+        u = torch.randn((n,), device="cuda", generator=gen)
+        cur = torch.randn((n,), device="cuda", generator=gen) * 0.7
+        s = (torch.rand((n,), device="cuda", generator=gen) < 0.3).float()
+        out = lif.lif_update(u, cur, s, beta=BETA, theta=THETA)
+        ref = lif.lif_update_plain(u, cur, s, beta=BETA, theta=THETA)
+        torch.cuda.synchronize()
+        moved, flops = 20 * n, 5.0 * n
+        b_ms, b_by = bound(moved, flops)
+        rows.append(dict(
+            shape=f"{name} n={n}", ok=torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1]),
+            bytes=moved, flops=flops, err=(out[0] - ref[0]).abs().max().item(), tol=0.0,
+            ms=cuda_ms(torch, lambda: lif.lif_update(u, cur, s, beta=BETA, theta=THETA)),
+            plain_ms=cuda_ms(torch, lambda: lif.lif_update_plain(u, cur, s, beta=BETA,
+                                                                theta=THETA)),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by))
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 4: serving on the card, held against the CPU
 # ---------------------------------------------------------------------------
@@ -235,7 +332,7 @@ def check_serving(torch, name, cfg, params_cpu, errors):
     steps = core.stats()["steps_run"]
     n_spiking = len(cfg.conv_channels) - 1
     want = {"dense_conv_lif": steps, "spike_matmul_mapped": n_spiking * steps,
-            "lif_epilogue_scan": (n_spiking + 2) * steps}
+            "lif_epilogue_scan": (n_spiking + 2) * steps, "spike_matmul": 0, "lif_step": 0}
     if launches != want:
         errors.append(f"{name}: CUDA_LAUNCHES {launches} != {want} over {steps} steps")
 
@@ -322,6 +419,119 @@ def profile_serving(torch, name, cfg, params_cpu, step_ms):
             "top": top[:16]}
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the unfused pipeline, held against the fused one and the CPU
+# ---------------------------------------------------------------------------
+
+def check_unfused(torch, name, cfg, params_cpu, errors):
+    from repro_torch.kernels import CUDA_LAUNCHES, reset_cuda_launches
+    from repro_torch.models.vgg9 import vgg9_infer_hybrid, vgg9_infer_hybrid_unfused
+
+    params = {k: {kk: v.to("cuda") for kk, v in leaf.items()} for k, leaf in params_cpu.items()}
+    images = torch.stack(make_requests(torch, cfg)[:SLOTS])    # the mixed trace
+    gpu_images = images.to("cuda")
+    fused = lambda: vgg9_infer_hybrid(params, gpu_images, cfg, device="cuda")
+    unfused = lambda: vgg9_infer_hybrid_unfused(params, gpu_images, cfg, device="cuda")
+    fused()                                                   # warm-up
+    unfused()
+    torch.cuda.synchronize()
+
+    reset_cuda_launches()
+    logits, counts = unfused()
+    torch.cuda.synchronize()
+    launches = dict(CUDA_LAUNCHES)
+    t, n_spiking = cfg.timesteps, len(cfg.conv_channels) - 1
+    want = {"dense_conv_lif": 1, "spike_matmul_mapped": 0, "lif_epilogue_scan": 0,
+            "spike_matmul": n_spiking * t, "lif_step": (n_spiking + 2) * t}
+    if launches != want:
+        errors.append(f"{name} unfused: CUDA_LAUNCHES {launches} != {want}")
+
+    ref_logits, ref_counts = fused()
+    if not torch.equal(logits, ref_logits):
+        errors.append(f"{name} unfused vs fused on the card: logits differ by "
+                      f"{(logits - ref_logits).abs().max().item()}")
+    for k in ref_counts:
+        if float(counts[k]) != float(ref_counts[k]):
+            errors.append(f"{name} unfused vs fused: {k} spikes {float(counts[k])} "
+                          f"!= {float(ref_counts[k])}")
+    if logits.shape != (SLOTS, cfg.num_classes) or not bool(torch.isfinite(logits).all()):
+        errors.append(f"{name} unfused: logits {tuple(logits.shape)} not finite")
+
+    cpu_logits, cpu_counts = vgg9_infer_hybrid_unfused(params_cpu, images, cfg, device="cpu")
+    d_logits = (logits.cpu() - cpu_logits).abs().max().item()
+    d_spikes = {k: abs(float(counts[k]) - float(cpu_counts[k])) / max(float(cpu_counts[k]), 1.0)
+                for k in counts}
+    if d_logits > 0.02 or max(d_spikes.values()) > 1e-3:
+        errors.append(f"{name} unfused card vs CPU logits {d_logits} spikes {d_spikes}")
+
+    fused_ms, unfused_ms = cuda_ms(torch, fused), cuda_ms(torch, unfused)
+    print(f"unfused {name}: bit-identical to fused {torch.equal(logits, ref_logits)}; "
+          f"card vs CPU max|dlogits|={d_logits} max rel dspikes={max(d_spikes.values()):.3e}; "
+          f"launches {launches}")
+    print(f"unfused {name}: forward ms (CUDA events, 8 images) fused {fused_ms:.4f} "
+          f"unfused {unfused_ms:.4f}")
+    return {"launches": launches, "fused_ms": fused_ms, "unfused_ms": unfused_ms,
+            "counts": {k: float(v) for k, v in counts.items()}, "d_logits_cpu": d_logits}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: training on the card
+# ---------------------------------------------------------------------------
+
+def check_training(torch, name, cfg, errors):
+    import numpy as np
+    from repro_torch.data.synthetic import image_batch
+    from repro_torch.models.vgg9 import init_vgg9, vgg9_forward, vgg9_loss
+    from repro_torch.train.optim import adamw
+    from repro_torch.train.schedule import warmup_cosine
+    from repro_torch.train.train_step import init_train_state, make_train_step, value_and_grad
+
+    loss_fn = lambda p, b: vgg9_loss(p, b, cfg)
+    params_cpu = init_vgg9(torch.Generator().manual_seed(0), cfg, "cpu")
+    params = {k: {kk: v.to("cuda") for kk, v in leaf.items()} for k, leaf in params_cpu.items()}
+
+    # one step's loss and gradients, card against CPU, on the same batch of 8
+    batch = image_batch(0, 0, 8, num_classes=cfg.num_classes, hw=cfg.img_hw)
+    grad_fn = value_and_grad(loss_fn)
+    cpu_loss, cpu_grads = grad_fn(params_cpu, batch)
+    loss, grads = grad_fn(params, {k: v.to("cuda") for k, v in batch.items()})
+    d_loss = abs(loss.item() - cpu_loss.item())
+    rel = {f"{layer}.{k}": (grads[layer][k].cpu() - g).norm().item() / max(g.norm().item(), 1e-30)
+           for layer, leaf in cpu_grads.items() for k, g in leaf.items()}
+    worst = max(rel, key=rel.get)
+    if d_loss > 1e-4 or rel[worst] > 1e-3:
+        errors.append(f"{name} train: card vs CPU loss {d_loss} worst grad {worst} {rel[worst]}")
+    print(f"train {name}: batch 8 card vs CPU |dloss|={d_loss:.3e} (loss {loss.item():.6f}); "
+          f"worst gradient rel L2 {worst} {rel[worst]:.3e}")
+
+    # 5 steps at batch 32
+    steps = 5
+    opt = adamw(weight_decay=0.0)
+    step = make_train_step(loss_fn, opt, warmup_cosine(3e-3, 20, steps))
+    state = init_train_state(params, opt)
+    losses, times = [], []
+    for i in range(steps):
+        b = image_batch(0, i, 32, num_classes=cfg.num_classes, hw=cfg.img_hw, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, b)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"].item())
+    if not all(math.isfinite(v) for v in losses):
+        errors.append(f"{name} train: losses {losses}")
+    test = image_batch(77, 0, 64, num_classes=cfg.num_classes, hw=cfg.img_hw, device="cuda")
+    with torch.no_grad():
+        _, counts = vgg9_forward(state["params"], test["images"], cfg)
+    spikes = {k: float(v) for k, v in counts.items()}
+    print(f"train {name}: {steps} steps at batch 32, losses {[round(v, 6) for v in losses]}, "
+          f"host ms/step (synchronized) {[round(v, 3) for v in times]}, "
+          f"median {float(np.median(times)):.3f}")
+    return {"d_loss": d_loss, "worst_grad": [worst, rel[worst]], "losses": losses,
+            "ms_per_step": times, "median_ms": float(np.median(times)),
+            "spikes_after": spikes}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -360,10 +570,13 @@ def main() -> None:
     cfg = vgg9_snn.CIFAR10
     gen = torch.Generator(device="cuda").manual_seed(0)
     dense_shape, mm_shapes, epi_shapes = main_path_shapes(cfg, SLOTS)
+    gated_shapes, lif_shapes = unfused_shapes(cfg, SLOTS)
     table = {
         "spike_matmul_mapped": check_spike_matmul(torch, mm_shapes, gen),
         "lif_epilogue_scan": check_lif_epilogue(torch, epi_shapes, cfg.timesteps, gen),
         "dense_conv_lif": check_dense_conv_lif(torch, dense_shape, cfg.timesteps, gen),
+        "spike_matmul": check_spike_matmul_gated(torch, gated_shapes, gen),
+        "lif_step": check_lif_step(torch, lif_shapes, gen),
     }
     failed = []
     for kname, rows in table.items():
@@ -399,12 +612,45 @@ def main() -> None:
     if errors:
         fail("; ".join(errors))
 
-    sources = {"spike_matmul_mapped": "src/repro_torch/kernels/spike_conv/csrc/spike_matmul_mapped.cu",
-               "lif_epilogue_scan": "src/repro_torch/kernels/lif_step/csrc/lif_epilogue_scan.cu",
-               "dense_conv_lif": "src/repro_torch/kernels/dense_conv_lif/csrc/dense_conv_lif.cu"}
+    # 5. unfused
+    unfused = {}
+    for name, scfg in (("CIFAR10", vgg9_snn.CIFAR10), ("CIFAR10_INT4", vgg9_snn.CIFAR10_INT4)):
+        params = init_vgg9(torch.Generator().manual_seed(0), scfg, "cpu")
+        unfused[name] = check_unfused(torch, name, scfg, params, errors)
+    print(f"phase 5 unfused: {len(errors)} errors")
+    if errors:
+        fail("; ".join(errors))
+
+    # 6. train
+    trained = {}
+    for name, scfg in (("CIFAR10", vgg9_snn.CIFAR10), ("CIFAR10_INT4", vgg9_snn.CIFAR10_INT4)):
+        trained[name] = check_training(torch, name, scfg, errors)
+    for layer in trained["CIFAR10"]["spikes_after"]:
+        print(f"  {layer}: spikes after 5 steps fp32 "
+              f"{trained['CIFAR10']['spikes_after'][layer]:.0f} int4 "
+              f"{trained['CIFAR10_INT4']['spikes_after'][layer]:.0f}")
+    print(f"phase 6 train: {len(errors)} errors")
+    if errors:
+        fail("; ".join(errors))
+
+    csrc = "src/repro_torch/kernels/{}/csrc/{}.cu"
+    sources = {"spike_matmul_mapped": csrc.format("spike_conv", "spike_matmul_mapped"),
+               "lif_epilogue_scan": csrc.format("lif_step", "lif_epilogue_scan"),
+               "dense_conv_lif": csrc.format("dense_conv_lif", "dense_conv_lif"),
+               "spike_matmul": csrc.format("spike_conv", "spike_matmul"),
+               "lif_step": csrc.format("lif_step", "lif_step")}
     replaces = {"spike_matmul_mapped": "src/repro/kernels/spike_conv/spike_conv.py:119",
                 "lif_epilogue_scan": "src/repro/kernels/lif_step/lif_step.py:72",
-                "dense_conv_lif": "src/repro/kernels/dense_conv_lif/dense_conv_lif.py:40"}
+                "dense_conv_lif": "src/repro/kernels/dense_conv_lif/dense_conv_lif.py:40",
+                "spike_matmul": "src/repro/kernels/spike_conv/spike_conv.py:57",
+                "lif_step": "src/repro/kernels/lif_step/lif_step.py:25"}
+    # launches of each kernel in the run of its own main path: serving
+    # (phase 4) for the fused pipeline's kernels, the unfused pipeline
+    # (phase 5) for the two it alone runs
+    main_runs = {k: [v["launches"] for v in served.values()]
+                 for k in ("spike_matmul_mapped", "lif_epilogue_scan", "dense_conv_lif")}
+    main_runs.update({k: [v["launches"] for v in unfused.values()]
+                      for k in ("spike_matmul", "lif_step")})
     kernels = []
     for kname, rows in table.items():
         b_total = sum(r["bound_ms"] for r in rows)
@@ -413,7 +659,7 @@ def main() -> None:
         kernels.append({
             "name": kname, "route": "cuda", "source": sources[kname],
             "replaces": replaces[kname],
-            "launches": sum(s["launches"][kname] for s in served.values()),
+            "launches": sum(run[kname] for run in main_runs[kname]),
             "max_abs_err": max(r["err"] for r in rows),
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),
@@ -425,9 +671,12 @@ def main() -> None:
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"device": kind, "nvidia_smi": smi_line, "kernels": table,
-                   "serve": served}, f, indent=1, default=str)
+                   "serve": served, "unfused": unfused, "train": trained}, f, indent=1,
+                  default=str)
     if any(math.isnan(k["ms"]) for k in kernels):
         fail("a kernel time is NaN")
+    if any(k["launches"] == 0 for k in kernels):
+        fail(f"a kernel was not launched on its main path: {kernels}")
     print(smi_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

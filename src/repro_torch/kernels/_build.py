@@ -41,6 +41,8 @@ CUDA_LAUNCHES: Dict[str, int] = {
     "spike_matmul_mapped": 0,
     "lif_epilogue_scan": 0,
     "dense_conv_lif": 0,
+    "spike_matmul": 0,
+    "lif_step": 0,
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -1,16 +1,22 @@
-"""Conv/FC-epilogue LIF update: bias add + decay + soft reset + threshold.
+"""The LIF update as kernels: one step over any shape, and the conv/FC epilogue.
 
-``lif_epilogue`` is one timestep in plain PyTorch (the JAX package's
-`lif_epilogue`, without the interpret flag). ``lif_epilogue_scan`` runs all
-T timesteps of a layer from u = s = 0 and returns the spikes: on a CUDA
-tensor the hand kernel in ``csrc/lif_epilogue_scan.cu`` (one launch per
+``lif_update`` is one LIF timestep over a tensor of any shape (the JAX
+package's `lif_update`): on a CUDA tensor the hand kernel in
+``csrc/lif_step.cu`` (one launch per call, over the flat length), on a CPU
+tensor ``lif_update_plain``. The unfused pipeline calls it T times per layer.
+
+``lif_epilogue`` is one epilogue timestep in plain PyTorch (the JAX
+package's `lif_epilogue`, without the interpret flag). ``lif_epilogue_scan``
+runs all T timesteps of a layer from u = s = 0 and returns the spikes: on a
+CUDA tensor the hand kernel in ``csrc/lif_epilogue_scan.cu`` (one launch per
 layer), on a CPU tensor ``lif_epilogue_scan_plain``, a Python loop over
 ``lif_epilogue``.
 
-Rounding: ``beta*u + (I + b)`` is rounded once, not twice. The JAX
-reference, as XLA compiles it for the CPU, contracts that sum into one
-fused multiply-add; computing it in float64 (where beta*u is exact) and
-rounding to float32 once reproduces it, on any device, without an FMA op.
+Rounding: ``beta*u + I`` (``beta*u + (I + b)`` in the epilogue) is rounded
+once, not twice. The JAX reference, as XLA compiles it for the CPU,
+contracts that sum into one fused multiply-add; computing it in float64
+(where beta*u is exact) and rounding to float32 once reproduces it, on any
+device, without an FMA op.
 """
 from __future__ import annotations
 
@@ -19,12 +25,49 @@ from typing import Tuple
 
 import torch
 
+from ...core.lif import _f32
 from .. import _build
 
 
-def _f32(x: float) -> float:
-    """A Python float rounded to float32, as JAX treats a weak-typed scalar."""
-    return float(torch.tensor(x, dtype=torch.float32))
+def lif_update_plain(u: torch.Tensor, current: torch.Tensor, prev_spike: torch.Tensor,
+                     *, beta: float = 0.15, theta: float = 0.5
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One step, any shape: u' = beta*u + I - s_prev*theta; s = u' > theta."""
+    decayed = (_f32(beta) * u.double() + current.double()).float()
+    u_next = decayed - prev_spike * theta
+    return u_next, (u_next > theta).to(u.dtype)
+
+
+def _lif_update_cuda(u, current, prev_spike, *, beta, theta):
+    _build.check_cuda_operands("lif_step", u=u, current=current, prev_spike=prev_spike)
+    if not u.shape == current.shape == prev_spike.shape:
+        raise ValueError(f"lif_step: shapes {tuple(u.shape)} {tuple(current.shape)} "
+                         f"{tuple(prev_spike.shape)} disagree")
+    u_next = torch.empty_like(u)
+    spikes = torch.empty_like(u)
+    vp = ctypes.c_void_p
+    _build.launch(
+        "lif_step", [vp] * 5 + [ctypes.c_longlong, ctypes.c_float, ctypes.c_float, vp],
+        _build.ptr(u), _build.ptr(current), _build.ptr(prev_spike),
+        _build.ptr(u_next), _build.ptr(spikes), u.numel(), beta, theta,
+        _build.stream())
+    return u_next, spikes
+
+
+def lif_update(u: torch.Tensor, current: torch.Tensor, prev_spike: torch.Tensor, *,
+               beta: float = 0.15, theta: float = 0.5
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One LIF step over tensors of one shape -> (u_next, spikes).
+
+    The tensor's device picks the path: CPU -> the plain version, CUDA ->
+    the hand kernel (raises on operands it does not take). The JAX
+    package's [R, 512] padding is a TPU layout; both paths work on the flat
+    length.
+    """
+    if _build.is_cpu("lif_step", u):
+        return lif_update_plain(u, current, prev_spike, beta=beta, theta=theta)
+    return _lif_update_cuda(u.contiguous(), current.contiguous(), prev_spike.contiguous(),
+                            beta=beta, theta=theta)
 
 
 def lif_epilogue(u: torch.Tensor, current: torch.Tensor, prev_spike: torch.Tensor,

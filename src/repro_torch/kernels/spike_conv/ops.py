@@ -1,4 +1,10 @@
-"""Occupancy-mapped spiking convolution: the sparse core.
+"""Spiking convolution: the sparse core, in-kernel-gated and occupancy-mapped.
+
+``spike_conv2d`` is the pre-fusion baseline (one call per timestep): it
+im2cols the binary spikes, pads the problem to the TPU tile sizes it is
+given and hands it to ``spike_matmul``: on a CUDA tensor the hand kernel in
+``csrc/spike_matmul.cu``, which tests each tile for spikes inside the
+kernel, on a CPU tensor its plain version ``spike_matmul_plain``.
 
 ``spike_conv2d_mapped`` im2cols the binary spikes (plain torch, on the
 spikes' device), pads the problem to the plan's tiles and hands it to
@@ -9,8 +15,8 @@ return the output and the occupancy maps at the plan's (block_m x block_k)
 tile geometry, from which the tile-skip stats follow.
 
 ``KERNEL_LAUNCHES`` counts wrapper calls per kernel name (one per
-``spike_conv2d_mapped`` call, on either path); the hand-kernel launches
-alone are counted in ``kernels._build.CUDA_LAUNCHES``.
+``spike_conv2d`` or ``spike_conv2d_mapped`` call, on either path); the
+hand-kernel launches alone are counted in ``kernels._build.CUDA_LAUNCHES``.
 """
 from __future__ import annotations
 
@@ -33,6 +39,10 @@ KERNEL_LAUNCHES: collections.Counter = collections.Counter()
 CUDA_TILE_M = 128
 CUDA_TILE_N = 128
 CUDA_STEP_K = 16
+# output tile and k slice of the in-kernel-gated kernel (`spike_matmul.cu`)
+GATED_TILE_M = 64
+GATED_TILE_N = 64
+GATED_TILE_K = 32
 
 
 def reset_launch_counts() -> None:
@@ -64,6 +74,80 @@ def row_occupancy(patches: torch.Tensor, block_k: int) -> torch.Tensor:
     """[M, K] binary spikes -> [M, K/bk] int8: 1 iff the row spikes in the k tile."""
     m, k = patches.shape
     return (patches.reshape(m, k // block_k, block_k) != 0).any(dim=2).to(torch.int8)
+
+
+def spike_matmul_plain(patches: torch.Tensor, w2d: torch.Tensor, *,
+                       gate: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of the in-kernel-gated product, on any device:
+    patches [M, K] @ w2d [K, N] in fp32. Empty tiles contribute exact
+    zeros, so skipping them (``gate``) changes nothing."""
+    return patches @ w2d
+
+
+def _spike_matmul_cuda(patches, w2d, *, gate):
+    _build.check_cuda_operands("spike_matmul", patches=patches, w2d=w2d)
+    m, k = patches.shape
+    k2, n = w2d.shape
+    if k != k2 or m % GATED_TILE_M or k % GATED_TILE_K or n % GATED_TILE_N:
+        raise ValueError(
+            f"spike_matmul: unsupported geometry M={m} K={k} K'={k2} N={n} (needs "
+            f"K == K', M % {GATED_TILE_M} == 0, K % {GATED_TILE_K} == 0, "
+            f"N % {GATED_TILE_N} == 0)")
+    out = torch.empty((m, n), dtype=torch.float32, device=patches.device)
+    c_int = ctypes.c_int
+    _build.launch(
+        "spike_matmul", [ctypes.c_void_p] * 3 + [c_int] * 4 + [ctypes.c_void_p],
+        _build.ptr(patches), _build.ptr(w2d), _build.ptr(out),
+        m, k, n, int(gate), _build.stream())
+    return out
+
+
+def spike_matmul(patches: torch.Tensor, w2d: torch.Tensor, *,
+                 gate: bool = True) -> torch.Tensor:
+    """In-kernel-gated product of padded operands -> out [M, N].
+
+    The patches' device picks the path: CPU -> the plain version, CUDA ->
+    the hand kernel (raises on operands it does not take).
+    """
+    if _build.is_cpu("spike_matmul", patches):
+        return spike_matmul_plain(patches, w2d, gate=gate)
+    return _spike_matmul_cuda(patches, w2d, gate=gate)
+
+
+def spike_conv2d(
+    spikes: torch.Tensor,
+    weights: torch.Tensor,
+    *,
+    padding: str = "SAME",
+    block_m: int = 256,
+    block_k: int = 128,
+    block_n: int = 128,
+    gate: bool = True,
+) -> torch.Tensor:
+    """Event-driven spiking conv: [B, H, W, Cin] x [KH, KW, Cin, Cout] (HWIO)
+    -> [B, OH, OW, Cout] fp32, through the in-kernel-gated ``spike_matmul``.
+
+    ``block_m/k/n`` are the JAX package's TPU tile sizes: they clamp to the
+    padded problem and set the padding (M to block_m, K to block_k, N to
+    block_n), as there; the CUDA kernel takes its own tiles, which divide
+    every padded size.
+    """
+    b, h, w, cin = spikes.shape
+    kh, kw, _, cout = weights.shape
+    patches = im2col(spikes, kh, kw, padding)            # [M, K]
+    w2d = weights.reshape(kh * kw * cin, cout)           # [K, N]
+
+    m, k = patches.shape
+    block_m = min(block_m, _round_up(m))
+    block_k = min(block_k, _round_up(k))
+    block_n = min(block_n, _round_up(cout))
+    patches = _pad_to(_pad_to(patches, 0, block_m), 1, block_k).contiguous()
+    w2d = _pad_to(_pad_to(w2d, 0, block_k), 1, block_n).contiguous()
+
+    KERNEL_LAUNCHES["spike_matmul"] += 1
+    out = spike_matmul(patches, w2d, gate=gate)[:m, :cout]
+    oh, ow = (h, w) if padding == "SAME" else (h - kh + 1, w - kw + 1)
+    return out.reshape(b, oh, ow, cout)
 
 
 def spike_matmul_mapped_plain(patches: torch.Tensor, w2d: torch.Tensor, *,

@@ -1,16 +1,26 @@
-"""Spiking VGG9 (paper §V-A) on the hybrid dense/sparse pipeline.
+"""Spiking VGG9 (paper §V-A) on the hybrid dense/sparse pipeline, and its training path.
 
 Network: 64C3-112C3-MP2-192C3-216C3-MP2-480C3-504C3-560C3-MP2-FC(1064)-FC(P)
 with LIF neurons after every conv/FC layer and population-coded output (P
 neurons, class score = spike count over the class's neuron group).
 
-This slice ports the serving path, `vgg9_infer_hybrid`: the dense core
-(`kernels.dense_conv_lif`) for the direct-coded input layer, then one
-occupancy-mapped gated matmul per spiking conv (`kernels.spike_conv`) with
-the T timesteps folded into its rows, each followed by the all-T LIF
-epilogue (`kernels.lif_step`), a 2x2 OR-pool, two FC layers and population
-decoding. Layouts follow the JAX package: activations NHWC, conv weights
-HWIO, FC weights [in, out]. Params are a plain dict ``{name: {"w", "b"}}``.
+Execution paths:
+  * training / eval, `vgg9_forward` / `vgg9_loss`: plain PyTorch
+    (``F.conv2d``), differentiable through the surrogate spike and the QAT
+    straight-through estimator (BPTT over a Python loop of T timesteps).
+    Direct coding hoists the input conv out of the timestep loop.
+  * fused hybrid inference, `vgg9_infer_hybrid`: the dense core
+    (`kernels.dense_conv_lif`) for the direct-coded input layer, then one
+    occupancy-mapped gated matmul per spiking conv (`kernels.spike_conv`)
+    with the T timesteps folded into its rows, each followed by the all-T
+    LIF epilogue (`kernels.lif_step`), a 2x2 OR-pool, two FC layers and
+    population decoding.
+  * unfused hybrid inference, `vgg9_infer_hybrid_unfused`: the pre-fusion
+    baseline, T in-kernel-gated `spike_conv2d` + `lif_update` launches per
+    spiking layer.
+
+Layouts follow the JAX package: activations NHWC, conv weights HWIO, FC
+weights [in, out]. Params are a plain dict ``{name: {"w", "b"}}``.
 """
 from __future__ import annotations
 
@@ -19,8 +29,10 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from ..core.lif import LIFParams
+from ..core.coding import direct_code, rate_code
+from ..core.lif import LIFParams, lif_step
 from ..core.quant import fake_quant
 from ..device import resolve_device
 
@@ -96,9 +108,19 @@ def params_from_numpy(tree, device="cuda") -> Dict[str, Dict[str, torch.Tensor]]
             for name, leaf in tree.items()}
 
 
+def train_state_from_numpy(tree, device="cuda"):
+    """A JAX train state (nested dicts of arrays: params, AdamW's ``m``,
+    ``v`` and ``t``, ``step``) as the port's: same keys, shapes and dtypes."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: train_state_from_numpy(v, dev) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree)).to(dev)
+
+
 def quantized_view(params: Dict, cfg: VGG9Config) -> Dict:
     """QAT fake-quant view of the weights (paper §II-B): int-`quant_bits`
-    weights, int8 biases, per-tensor scales; neuronal parameters untouched."""
+    weights, int8 biases, per-tensor scales; neuronal parameters untouched.
+    Differentiable: the straight-through gradient reaches the fp32 masters."""
     if cfg.quant_bits == 0:
         return params
     return {name: {k: fake_quant(v, cfg.quant_bits if k == "w" else 8)
@@ -106,12 +128,91 @@ def quantized_view(params: Dict, cfg: VGG9Config) -> Dict:
             for name, leaf in params.items()}
 
 
+def _conv(x: torch.Tensor, p: Dict) -> torch.Tensor:
+    """SAME conv, NHWC x HWIO -> NHWC, then the bias in its own rounding
+    (as the JAX package adds it after ``lax.conv``)."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), p["w"].permute(3, 2, 0, 1), padding="same")
+    return y.permute(0, 2, 3, 1) + p["b"]
+
+
 def _maxpool_spikes(s: torch.Tensor) -> torch.Tensor:
     """2x2 max-pool over NHWC binary spikes == OR gate over the window
-    (paper §IV-B); an odd trailing row/column is dropped (VALID)."""
-    n, h, w, c = s.shape
-    s = s[:, :h // 2 * 2, :w // 2 * 2, :]
-    return s.reshape(n, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
+    (paper §IV-B); an odd trailing row/column is dropped (VALID). Its
+    gradient goes to the first maximum of each window in row-major order,
+    the element XLA's max-pool gradient picks."""
+    y = F.max_pool2d(s.permute(0, 3, 1, 2), kernel_size=2, stride=2)
+    return y.permute(0, 2, 3, 1)
+
+
+def vgg9_forward(params: Dict, images, cfg: VGG9Config, *,
+                 generator: torch.Generator = None
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """images [B,H,W,C] -> (logits [B,num_classes], spike counts per layer).
+
+    The training path: BPTT through a Python loop over T timesteps carrying
+    membrane potentials and previous spikes for every LIF layer. Runs on
+    the params' device (images are moved there). The LIF sum
+    ``beta*u + current`` is rounded once, as XLA compiles the reference's
+    scan body. Rate coding draws its spikes from ``generator`` (on the
+    params' device). Counts are detached 0-d float32 tensors.
+    """
+    qp = quantized_view(params, cfg)
+    lif = cfg.lif
+    dev = qp["conv0"]["w"].device
+    images = torch.as_tensor(images, dtype=torch.float32, device=dev)
+    b, t_steps = images.shape[0], cfg.timesteps
+
+    if cfg.coding == "direct":
+        if cfg.hoist_input_conv:
+            currents_in = [_conv(images, qp["conv0"])] * t_steps   # computed once
+        else:
+            coded = direct_code(images, t_steps)
+            currents_in = [_conv(coded[t], qp["conv0"]) for t in range(t_steps)]
+    elif cfg.coding == "rate":      # binary input spikes, conv0 acts as a sparse layer
+        if generator is None:
+            raise ValueError("rate coding needs a generator")
+        coded = rate_code(generator, images, t_steps)
+        currents_in = [_conv(coded[t], qp["conv0"]) for t in range(t_steps)]
+    else:
+        raise ValueError(f"unknown coding {cfg.coding!r}")
+
+    state: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+    counts: Dict[str, torch.Tensor] = {}
+
+    def fire(name, current):
+        u, s_prev = state.get(name) or (torch.zeros_like(current), torch.zeros_like(current))
+        u_next, s = lif_step(u, current, s_prev, lif)
+        state[name] = (u_next, s)
+        counts[name] = counts.get(name, 0) + s.detach().sum()
+        return s
+
+    pop = 0
+    for t in range(t_steps):
+        s = fire("conv0", currents_in[t])
+        for kind, idx in _stage_plan(cfg):
+            if kind == "MP":
+                s = _maxpool_spikes(s)
+            else:
+                s = fire(f"conv{idx}", _conv(s, qp[f"conv{idx}"]))
+        s = s.reshape(b, -1)
+        s = fire("fc0", s @ qp["fc0"]["w"] + qp["fc0"]["b"])
+        pop = pop + fire("fc1", s @ qp["fc1"]["w"] + qp["fc1"]["b"])   # [B, P] over T
+
+    # population decoding: class score = total spikes in the class's group
+    group = cfg.population // cfg.num_classes
+    logits = pop.reshape(b, cfg.num_classes, group).sum(-1) / (t_steps * group)
+    return logits, counts
+
+
+def vgg9_loss(params: Dict, batch: Dict, cfg: VGG9Config, *,
+              generator: torch.Generator = None) -> torch.Tensor:
+    """Cross-entropy of the sharpened population rates (the reference's loss)."""
+    logits, _ = vgg9_forward(params, batch["images"], cfg, generator=generator)
+    labels = torch.as_tensor(batch["labels"], device=logits.device).long()
+    logits = logits * 10.0  # population rates are in [0,1]; sharpen for CE
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[:, None])[:, 0]
+    return torch.mean(logz - gold)
 
 
 def _stage_plan(cfg: VGG9Config):
@@ -215,4 +316,71 @@ def vgg9_infer_hybrid(params: Dict, images, cfg: VGG9Config, *, device="cuda",
     logits = pop.reshape(b, cfg.num_classes, group).sum(-1) / (t * group)
     if return_stats:
         return logits, counts, stats
+    return logits, counts
+
+
+def vgg9_infer_hybrid_unfused(params: Dict, images, cfg: VGG9Config, *,
+                              device="cuda") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The pre-fusion pipeline -> (logits, counts): per spiking layer, T
+    in-kernel-gated `spike_conv2d` launches, each followed by one
+    `lif_update` launch; the FC layers' LIF per timestep through
+    `lif_update` too.
+    The baseline the fused `vgg9_infer_hybrid` is measured against, and
+    bit-identical to it (same per-row sums, same LIF rounding).
+
+    images: [B, H, W, C] (tensor or array), moved to ``device``; params
+    must already live there. Direct coding only.
+    """
+    from ..kernels.dense_conv_lif.ops import input_layer_conv_lif
+    from ..kernels.lif_step.ops import lif_update
+    from ..kernels.spike_conv.ops import spike_conv2d
+
+    if cfg.coding != "direct":
+        raise ValueError(f"vgg9_infer_hybrid_unfused serves direct coding only, "
+                         f"not {cfg.coding!r}")
+    dev = resolve_device(device)
+    images = torch.as_tensor(images, dtype=torch.float32, device=dev)
+    qp = quantized_view(params, cfg)
+    b, t_steps = images.shape[0], cfg.timesteps
+
+    def lif_over_time(current_at):
+        """For t < T: current_at(t), then one `lif_update` launch -> [T, ...] spikes."""
+        outs = []
+        for t in range(t_steps):
+            cur = current_at(t)
+            if t == 0:
+                u = s_prev = torch.zeros_like(cur)
+            u, s_prev = lif_update(u, cur, s_prev, beta=cfg.beta, theta=cfg.theta)
+            outs.append(s_prev)
+        return torch.stack(outs)
+
+    # Dense core: input layer, conv once + T fused LIF steps
+    spikes, _ = input_layer_conv_lif(
+        images, qp["conv0"]["w"], qp["conv0"]["b"],
+        num_steps=t_steps, beta=cfg.beta, theta=cfg.theta)
+    counts = {"conv0": spikes.sum()}
+
+    layer_in = spikes                                       # [T, B, H, W, C]
+    for kind, idx in _stage_plan(cfg):
+        if kind == "MP":
+            pooled = _maxpool_spikes(layer_in.reshape((t_steps * b,) + layer_in.shape[2:]))
+            layer_in = pooled.reshape((t_steps, b) + pooled.shape[1:])
+            continue
+        p = qp[f"conv{idx}"]
+        layer_in = lif_over_time(lambda t: spike_conv2d(layer_in[t], p["w"]) + p["b"])
+        counts[f"conv{idx}"] = layer_in.sum()
+
+    # FC layers: one product over all T*B rows, the same call the fused
+    # pipeline makes (so both get the same row sums whatever cuBLAS picks
+    # for M), then the LIF per timestep
+    flat = layer_in.reshape(t_steps, b, -1)
+    for name in ("fc0", "fc1"):
+        p = qp[name]
+        cur = (flat.reshape(t_steps * b, -1) @ p["w"]).reshape(t_steps, b, -1)
+        flat = lif_over_time(lambda t: cur[t] + p["b"])
+        counts[name] = flat.sum()
+
+    group = cfg.population // cfg.num_classes
+    pop = flat.sum(0)
+    logits = pop.reshape(b, cfg.num_classes, group).sum(-1) / (t_steps * group)
     return logits, counts

@@ -5,6 +5,7 @@ Quantization, planning and the cost models must agree exactly.
 """
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -55,7 +56,9 @@ def test_lif_step_matches_reference():
     rng = np.random.default_rng(3)
     u, cur = (rng.normal(size=(64, 40)).astype(np.float32) for _ in range(2))
     s = (rng.random((64, 40)) < 0.3).astype(np.float32)
-    ju, js = jax_lif_step(jnp.asarray(u), jnp.asarray(cur), jnp.asarray(s), JaxLIFParams())
+    # compiled, as the reference runs it inside jit and lax.scan
+    step = jax.jit(jax_lif_step, static_argnums=3)
+    ju, js = step(jnp.asarray(u), jnp.asarray(cur), jnp.asarray(s), JaxLIFParams())
     tu, ts = lif_step(torch.from_numpy(u), torch.from_numpy(cur), torch.from_numpy(s),
                       LIFParams())
     np.testing.assert_array_equal(tu.numpy(), np.asarray(ju))

@@ -6,10 +6,14 @@ runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Bars: the gated matmul's occupancy maps exactly equal and currents within
+Bars: the gated matmuls' occupancy maps exactly equal and currents within
 1e-4 * max(1, max|ref|) (0/1 inputs make every product exact; only the
-order of the fp32 sum differs); the LIF epilogue bit-identical; the dense
-core's u within 1e-5 and its spikes equal wherever u is clear of theta.
+order of the fp32 sum differs), and the two gated matmuls bit-identical to
+each other (both sum k ascending); the LIF kernels bit-identical; the dense
+core's u within 1e-5 and its spikes equal wherever u is clear of theta; the
+unfused pipeline bit-identical to the fused one; a training step's loss
+within 1e-4 and each gradient's relative L2 difference within 1e-3 of the
+CPU's (cuDNN and the CPU sum in different orders).
 """
 import numpy as np
 import pytest
@@ -113,10 +117,80 @@ def test_pipeline_matches_cpu(cuda, name):
     reset_cuda_launches()
     gpu = vgg9.vgg9_infer_hybrid(gpu_params, imgs, cfg, device="cuda", return_stats=True)
     assert dict(CUDA_LAUNCHES) == {"dense_conv_lif": 1, "spike_matmul_mapped": 3,
-                                   "lif_epilogue_scan": 5}
+                                   "lif_epilogue_scan": 5, "spike_matmul": 0, "lif_step": 0}
     assert (gpu[0].cpu() - cpu[0]).abs().max().item() <= 1e-5
     for k in cpu[1]:
         assert int(gpu[1][k]) == int(cpu[1][k]), k
     for layer, st in cpu[2].items():
         for key, v in st.items():
             assert torch.equal(gpu[2][layer][key].cpu(), v), (layer, key)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,gate", [(8192, 640, 128, True), (512, 4608, 640, True),
+                                        (512, 2048, 512, False), (256, 128, 128, True)])
+def test_spike_matmul_matches_plain_and_mapped(cuda, m, k, n, gate):
+    patches = _spikes(23, (m, k)).to(cuda)
+    patches[:64] = 0.0                                       # an all-zero tile row
+    patches[:, :32] = 0.0                                    # an all-zero k slice
+    w2d = _normal(24, (k, n)).to(cuda)
+    before = CUDA_LAUNCHES["spike_matmul"]
+    out = sc_ops.spike_matmul(patches, w2d, gate=gate)
+    torch.cuda.synchronize()
+    assert CUDA_LAUNCHES["spike_matmul"] == before + 1
+    ref = sc_ops.spike_matmul_plain(patches, w2d, gate=gate)
+    assert (out - ref).abs().max().item() <= 1e-4 * max(1.0, ref.abs().max().item())
+    assert out[:64].abs().max().item() == 0.0
+    mapped, _, _ = sc_ops.spike_matmul_mapped(patches, w2d, block_m=128, block_k=128)
+    assert torch.equal(out, mapped)                  # the same per-element sum order
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [917504, 8512, 8000, 1001, 3])
+def test_lif_update_bit_identical(cuda, n):
+    u, cur = _normal(25, (n,)).to(cuda), _normal(26, (n,), 0.7).to(cuda)
+    s = _spikes(27, (n,), 0.3).to(cuda)
+    before = CUDA_LAUNCHES["lif_step"]
+    out = lif_ops.lif_update(u, cur, s, beta=BETA, theta=THETA)
+    torch.cuda.synchronize()
+    assert CUDA_LAUNCHES["lif_step"] == before + 1
+    ref = lif_ops.lif_update_plain(u, cur, s, beta=BETA, theta=THETA)
+    assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["TINY", "TINY_INT4"])
+def test_unfused_matches_fused_on_card(cuda, name):
+    cfg = getattr(vgg9_snn, name)
+    params = vgg9.init_vgg9(torch.Generator().manual_seed(0), cfg, "cuda")
+    imgs = torch.rand((4, 16, 16, 3), generator=torch.Generator().manual_seed(1))
+    imgs[1] = 0.0
+    fused, fc = vgg9.vgg9_infer_hybrid(params, imgs, cfg, device="cuda")
+    reset_cuda_launches()
+    unfused, uc = vgg9.vgg9_infer_hybrid_unfused(params, imgs, cfg, device="cuda")
+    n_spiking = len(cfg.conv_channels) - 1
+    assert CUDA_LAUNCHES["spike_matmul"] == n_spiking * cfg.timesteps
+    assert CUDA_LAUNCHES["lif_step"] == (n_spiking + 2) * cfg.timesteps
+    assert torch.equal(fused, unfused)
+    for k in fc:
+        assert int(fc[k]) == int(uc[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["TINY", "TINY_INT4"])
+def test_training_grads_match_cpu(cuda, name):
+    from repro_torch.train.train_step import value_and_grad
+    cfg = getattr(vgg9_snn, name)
+    params = vgg9.init_vgg9(torch.Generator().manual_seed(0), cfg, "cpu")
+    rng = np.random.default_rng(28)
+    batch = {"images": torch.from_numpy(rng.random((8, 16, 16, 3)).astype(np.float32)),
+             "labels": torch.from_numpy(rng.integers(0, cfg.num_classes, 8))}
+    grad_fn = value_and_grad(lambda p, b: vgg9.vgg9_loss(p, b, cfg))
+    loss, grads = grad_fn(params, batch)
+    gpu_params = {k: {kk: v.to(cuda) for kk, v in leaf.items()} for k, leaf in params.items()}
+    gpu_loss, gpu_grads = grad_fn(gpu_params, {k: v.to(cuda) for k, v in batch.items()})
+    assert abs(gpu_loss.item() - loss.item()) <= 1e-4
+    for layer, leaf in grads.items():
+        for k, g in leaf.items():
+            diff = (gpu_grads[layer][k].cpu() - g).norm().item()
+            assert diff <= 1e-3 * max(g.norm().item(), 1e-12), (layer, k)

@@ -116,7 +116,8 @@ def test_mapped_wrapper_counts_calls_not_cuda_launches():
 
 def test_build_covers_every_counted_kernel():
     assert sorted(p.name for p in _build.sources()) == [
-        "dense_conv_lif.cu", "lif_epilogue_scan.cu", "spike_matmul_mapped.cu"]
+        "dense_conv_lif.cu", "lif_epilogue_scan.cu", "lif_step.cu", "spike_matmul.cu",
+        "spike_matmul_mapped.cu"]
     assert set(CUDA_LAUNCHES) == {p.stem for p in _build.sources()}
 
 
@@ -156,6 +157,14 @@ def test_wrappers_refuse_devices_without_a_kernel():
                                  torch.empty((27, 8), device="meta"),
                                  torch.empty((8,), device="meta"),
                                  num_steps=2, beta=BETA, theta=THETA)
+
+
+def test_unfused_wrappers_refuse_devices_without_a_kernel():
+    meta = torch.empty((128, 128), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        sc_ops.spike_matmul(meta, meta)
+    with pytest.raises(ValueError, match="no kernel"):
+        lif_ops.lif_update(meta, meta, meta, beta=BETA, theta=THETA)
 
 
 # ---------------------------------------------------------------------------

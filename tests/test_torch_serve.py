@@ -103,12 +103,14 @@ def test_filler_is_zero_image_on_runner_device(jax_params):
 
 
 def test_import_leaves_jax_and_reference_out():
-    code = ("import sys\n"
-            "import repro_torch, repro_torch.serve, repro_torch.serve.runners.snn\n"
-            "import repro_torch.models.vgg9, repro_torch.launch.serve\n"
-            "import repro_torch.configs.vgg9_snn, repro_torch.core\n"
-            "import repro_torch.kernels.spike_conv.ops, repro_torch.kernels.lif_step.ops\n"
-            "import repro_torch.kernels.dense_conv_lif.ops\n"
+    code = ("import importlib, pkgutil, sys\n"
+            "import repro_torch\n"
+            "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,"
+            " 'repro_torch.')]\n"
+            "for name in names:\n"
+            "    importlib.import_module(name)\n"
+            "assert {'repro_torch.train.train_step', 'repro_torch.launch.train_vgg9',"
+            " 'repro_torch.core.coding', 'repro_torch.data.synthetic'} <= set(names)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'repro' or m.startswith('repro.'))\n"
             "assert not bad, bad\n"
