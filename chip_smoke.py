@@ -26,7 +26,24 @@ Run from the root of a checkout. Phases, one line or block each:
              and int4 QAT, AdamW + warmup-cosine: one step's loss and
              gradients on the card against the CPU on the same batch, then 5
              steps at batch 32 (finite loss, median ms per step) and the
-             per-layer spikes of the trained weights.
+             per-layer spikes of the trained weights;
+7. lm      — qwen1.5-4b: (a) at full width and depth (40 layers, 15.8 GB of
+             fp32 weights), served in fp32 and int4 (fake-quant) by
+             EngineCore + LMRunner, 4 slots, prefill chunk 8, speculation
+             k=4, 8 requests (a repetitive, a sampled and an empty prompt
+             among them): budgets, vocab range, speculative = plain and
+             batch = solo streams, host ms per engine step and per decode
+             step against the step's bound, device busy share; (b) at full
+             width and depth 2, `decode_chunk` logits on the card against
+             the CPU and the same requests served on both; (c)
+             `launch/serve_lm_w4.py --full`, the int4 matmul's main path;
+             (d) the layer-0 prefill attention of a 2048-token prompt
+             through `flash_attention`, against the model's own
+             `chunked_causal_attention`, the flash kernel's main path.
+
+Phase 3 also holds `int4_matmul` at qwen1.5-4b's projection shapes (decode
+M = 4, prefill M = 512, the LM head, the example's shape) and
+`flash_attention` at 20 heads of 128, S = 512 and 2048, fp32 and bf16.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero before it. Every per-shape row and serving figure also goes to
@@ -43,10 +60,12 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth and fp32
-# (non-tensor-core) rate, the unit all three kernels compute in.
+# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, the fp32
+# (non-tensor-core) rate the fp32 kernels compute at, and the dense bf16
+# tensor-core rate, the peak for work on bf16 inputs.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 
 SLOTS = 8
 BETA, THETA = 0.15, 0.5
@@ -57,9 +76,9 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def bound(bytes_moved: float, flops: float):
+def bound(bytes_moved: float, flops: float, peak: float = FP32_FLOPS):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -280,6 +299,72 @@ def check_lif_step(torch, shapes, gen):
     return rows
 
 
+def int4_shapes(cfg, slots, prefill):
+    """(M, K, N) of the int4 matmul at qwen's projections: attention (d x d),
+    MLP in (d x d_ff) and out (d_ff x d) at decode (M = slots) and prefill
+    (M = prefill) widths, the LM head at decode width, and the shape
+    `launch/serve_lm_w4.py --full` gives it."""
+    d, ff = cfg.d_model, cfg.d_ff
+    out = [(m, k, n) for k, n in ((d, d), (d, ff), (ff, d)) for m in (slots, prefill)]
+    return out + [(slots, d, cfg.vocab), (4, d, 256)]
+
+
+def check_int4_matmul(torch, shapes, gen):
+    from repro_torch.core.quant import dequantize, quantize_int4
+    from repro_torch.kernels.int4_matmul import ops as i4
+    rows = []
+    for m, k, n in shapes:
+        qt = quantize_int4(torch.randn((k, n), device="cuda", generator=gen))
+        x = torch.randn((m, k), device="cuda", generator=gen)
+        out = i4.int4_matmul(x, qt.packed, qt.scale)
+        ref = i4.int4_matmul_plain(x, qt.packed, qt.scale)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        tol = 1e-4 * max(1.0, ref.abs().max().item())
+        w = dequantize(qt)                   # the library's operand: pre-dequantized fp32
+        moved = 4 * m * k + k * n // 2 + 4 * n + 4 * m * n
+        flops = 2.0 * m * k * n
+        b_ms, b_by = bound(moved, flops)
+        rows.append(dict(
+            shape=f"M={m} K={k} N={n}", ok=err <= tol, err=err, tol=tol, bytes=moved,
+            flops=flops,
+            ms=cuda_ms(torch, lambda: i4.int4_matmul(x, qt.packed, qt.scale)),
+            plain_ms=cuda_ms(torch, lambda: i4.int4_matmul_plain(x, qt.packed, qt.scale)),
+            library_ms=cuda_ms(torch, lambda: torch.matmul(x, w)),
+            bound_ms=b_ms, bound_by=b_by))
+        del qt, w, x, out, ref
+    return rows
+
+
+def check_flash_attention(torch, gen, heads=20, hd=128):
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa
+    rows = []
+    for s in (512, 2048):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn((heads, s, hd), device="cuda", generator=gen).to(dtype)
+                       for _ in range(3))
+            out = fa.flash_attention_fwd(q, k, v)
+            ref = fa.flash_attention_plain(q, k, v)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            # fp32: the JAX test's bar; bf16: one rounding step of the largest output
+            tol = 5e-5 if dtype == torch.float32 else 2 ** -7 * max(1.0, ref.abs().max().item())
+            moved = 4 * heads * s * hd * q.element_size()
+            flops = 4.0 * hd * heads * s * (s + 1) / 2      # QK^T and PV over causal pairs
+            b_ms, b_by = bound(moved, flops,
+                               FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS)
+            rows.append(dict(
+                shape=f"B=1 H=KV={heads} S={s} hd={hd} {str(dtype).split('.')[1]}",
+                ok=err <= tol, err=err, tol=tol, bytes=moved, flops=flops,
+                ms=cuda_ms(torch, lambda: fa.flash_attention_fwd(q, k, v)),
+                plain_ms=cuda_ms(torch, lambda: fa.flash_attention_plain(q, k, v)),
+                library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                    q[None], k[None], v[None], is_causal=True)),
+                bound_ms=b_ms, bound_by=b_by))
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 4: serving on the card, held against the CPU
 # ---------------------------------------------------------------------------
@@ -331,8 +416,9 @@ def check_serving(torch, name, cfg, params_cpu, errors):
     launches = dict(CUDA_LAUNCHES)
     steps = core.stats()["steps_run"]
     n_spiking = len(cfg.conv_channels) - 1
-    want = {"dense_conv_lif": steps, "spike_matmul_mapped": n_spiking * steps,
-            "lif_epilogue_scan": (n_spiking + 2) * steps, "spike_matmul": 0, "lif_step": 0}
+    want = dict.fromkeys(CUDA_LAUNCHES, 0)
+    want.update({"dense_conv_lif": steps, "spike_matmul_mapped": n_spiking * steps,
+                 "lif_epilogue_scan": (n_spiking + 2) * steps})
     if launches != want:
         errors.append(f"{name}: CUDA_LAUNCHES {launches} != {want} over {steps} steps")
 
@@ -441,8 +527,9 @@ def check_unfused(torch, name, cfg, params_cpu, errors):
     torch.cuda.synchronize()
     launches = dict(CUDA_LAUNCHES)
     t, n_spiking = cfg.timesteps, len(cfg.conv_channels) - 1
-    want = {"dense_conv_lif": 1, "spike_matmul_mapped": 0, "lif_epilogue_scan": 0,
-            "spike_matmul": n_spiking * t, "lif_step": (n_spiking + 2) * t}
+    want = dict.fromkeys(CUDA_LAUNCHES, 0)
+    want.update({"dense_conv_lif": 1, "spike_matmul": n_spiking * t,
+                 "lif_step": (n_spiking + 2) * t})
     if launches != want:
         errors.append(f"{name} unfused: CUDA_LAUNCHES {launches} != {want}")
 
@@ -532,6 +619,278 @@ def check_training(torch, name, cfg, errors):
             "spikes_after": spikes}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the LM (qwen1.5-4b) served on the card
+# ---------------------------------------------------------------------------
+
+LM_SLOTS, LM_MAX_SEQ, LM_CHUNK, LM_NEW, LM_SPECULATE = 4, 512, 8, 16, 4
+# card vs CPU: logits are sums of 2560-6912 fp32 products taken in other
+# orders (cuBLAS vs the CPU's BLAS), through two layers; the observed
+# differences are ~1e-5 on logits of order one, so 1e-3 leaves a wide margin
+# while still catching a wrong kernel or a wrong mask
+LM_CPU_TOL = 1e-3
+
+
+def sync(torch, device) -> None:
+    if str(device).startswith("cuda"):
+        torch.cuda.synchronize()
+
+
+def lm_trace(vocab):
+    """8 requests, 16 new tokens each: prompts of 5-200 random tokens, one
+    empty prompt (index 4), one repetitive prompt (index 6) and one sampled
+    request (index 2: temperature 0.8, top-p 0.9, seed 0)."""
+    import numpy as np
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(1, vocab, n).tolist() for n in (5, 200, 37, 120, 0, 64, 0, 90)]
+    prompts[6] = [11, 12, 13, 14, 15] * 6
+    opts = [{} for _ in prompts]
+    opts[2] = dict(temperature=0.8, top_p=0.9, seed=0)
+    return prompts, opts
+
+
+def lm_serve(torch, runner, prompts, opts, device, profile_at=None, profile_steps=3):
+    """Serve the trace through one EngineCore; returns (results in order,
+    host ms of each unprofiled step (synchronized), profile or None). With
+    ``profile_at``, steps profile_at .. profile_at + profile_steps - 1 run
+    under one torch.profiler window: (kernel ms, wall ms, steps, the top
+    kernels as (name, ms per step, launches per step))."""
+    from repro_torch.serve.api import EngineConfig
+    from repro_torch.serve.core import EngineCore
+    core = EngineCore(runner, EngineConfig(slots=LM_SLOTS, prefill_chunk=LM_CHUNK))
+    ids = [core.submit(p, max_new_tokens=LM_NEW, **o) for p, o in zip(prompts, opts)]
+    times, prof, i = [], None, 0
+    while core.pending() or core.in_flight():
+        if i == profile_at:
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as trace:
+                t0 = time.perf_counter()
+                for _ in range(profile_steps):
+                    core.step()
+                sync(torch, device)
+                wall = (time.perf_counter() - t0) * 1e3
+            kernels = sorted((e for e in trace.key_averages()
+                              if e.device_type == torch.autograd.DeviceType.CUDA
+                              and e.self_device_time_total > 0),
+                             key=lambda e: e.self_device_time_total, reverse=True)
+            busy = sum(e.self_device_time_total for e in kernels) / 1e3
+            top = [(e.key, e.self_device_time_total / 1e3 / profile_steps,
+                    e.count // profile_steps) for e in kernels[:8]]
+            prof = (busy, wall, profile_steps, top)
+            i += profile_steps
+            continue
+        t0 = time.perf_counter()
+        core.step()
+        sync(torch, device)
+        times.append((time.perf_counter() - t0) * 1e3)
+        i += 1
+    results = core.run_until_complete()
+    return [results[r] for r in ids], times, prof
+
+
+def decode_bound_ms(torch, params, cache) -> float:
+    """The least time of one decode step on 4 slots: every weight it reads
+    once (all but the embedding table, of which it gathers 4 rows) plus the
+    whole KV cache (attention scores every max_seq slot), at 3.35 TB/s."""
+    def nbytes(tree):
+        if isinstance(tree, dict):
+            return sum(nbytes(v) for v in tree.values())
+        if isinstance(tree, tuple):
+            return sum(nbytes(v) for v in tree)
+        return tree.numel() * tree.element_size()
+    moved = nbytes({k: v for k, v in params.items() if k != "embed"}) + nbytes(cache)
+    return moved / HBM_BYTES_PER_S * 1e3
+
+
+def check_lm_serving(torch, cfg, device, errors):
+    """Phase 7a: full-width qwen served in fp32 and int4 on ``device``."""
+    import copy
+    import numpy as np
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.runners.lm import LMRunner
+    prompts, opts = lm_trace(cfg.vocab)
+    t0 = time.perf_counter()
+    params = tf.init_params(torch.Generator(device=device).manual_seed(0), cfg, device)
+    sync(torch, device)
+    init_s = time.perf_counter() - t0
+    out = {"init_s": init_s}
+    for bits in (0, 4):
+        name = f"int{bits}" if bits else "fp32"
+        runner = LMRunner(cfg, params, max_seq=LM_MAX_SEQ, quant_bits=bits,
+                          speculate_k=LM_SPECULATE, device=device)
+        plain = copy.copy(runner)                     # the same weights, no speculation
+        plain.speculate_k = 0
+        lm_serve(torch, runner, prompts[:1], opts[:1], device)            # warm-up
+        res, times, prof = lm_serve(torch, runner, prompts, opts, device, profile_at=6)
+        for i, (p, r) in enumerate(zip(prompts, res)):
+            new = r.outputs[len(p):]
+            if r.status != "ok" or len(new) != LM_NEW or r.outputs[:len(p)] != p \
+                    or not all(0 <= t < cfg.vocab for t in r.outputs):
+                errors.append(f"lm {name}: request {i} status={r.status} emitted {len(new)}")
+        drafted = sum(r.stats["drafted_tokens"] for r in res)
+        # the repetitive request without speculation, and the longest greedy
+        # prompt, each served alone: equal to their streams in the batch
+        solo = {i: lm_serve(torch, plain, [prompts[i]], [opts[i]], device)[0][0].outputs
+                for i in (6, 1)}
+        for i, stream in solo.items():
+            if stream != res[i].outputs:
+                errors.append(f"lm {name}: request {i} served alone without speculation "
+                              f"differs from the speculative batch")
+        # one plain decode step on 4 slots, against its bound
+        sess = plain.open_session(LM_SLOTS)
+        tokens = torch.ones((LM_SLOTS, 1), dtype=torch.long, device=device)
+        pos = torch.full((LM_SLOTS,), LM_MAX_SEQ // 2, device=device)
+        step_ms = []
+        for _ in range(6):
+            t1 = time.perf_counter()
+            tf.decode_step(plain.params, sess.cache, {"tokens": tokens}, pos, cfg)
+            sync(torch, device)
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+        bound_ms = decode_bound_ms(torch, plain.params, sess.cache)
+        busy, wall, n_prof, top = prof
+        row = {"steps": len(times) + n_prof, "ms_per_step": times,
+               "median_ms_per_step": float(np.median(times)),
+               "decode_step_ms": step_ms, "median_decode_step_ms": float(np.median(step_ms[1:])),
+               "decode_bound_ms": bound_ms, "drafted": drafted,
+               "accepted": sum(r.stats["accepted_tokens"] for r in res),
+               "profiled_steps": n_prof, "profiled_wall_ms": wall, "profiled_busy_ms": busy,
+               "profiled_top": top,
+               "outputs": [r.outputs[len(p):] for p, r in zip(prompts, res)]}
+        out[name] = row
+        print(f"lm {name}: {len(prompts)} requests, {row['steps']} engine steps, host "
+              f"{row['median_ms_per_step']:.3f} ms per engine step (median, synchronized; "
+              f"up to {LM_CHUNK} decode steps each); one decode step on {LM_SLOTS} slots "
+              f"{row['median_decode_step_ms']:.3f} ms against a bound of {bound_ms:.3f} ms; "
+              f"profiled steps {6}-{5 + n_prof}: device busy {busy / n_prof:.3f} ms/step, "
+              f"{100 * busy / wall:.1f}% of their {wall / n_prof:.3f} ms/step under the "
+              f"profiler, {100 * busy / n_prof / row['median_ms_per_step']:.1f}% of the "
+              f"unprofiled median step; drafted {drafted}, accepted {row['accepted']}")
+        print(f"lm {name}: top device ms/step (launches/step): "
+              + ", ".join(f"{k[:40]} {ms:.3f} ({n})" for k, ms, n in top))
+        del runner, plain, sess
+    del params
+    if str(device).startswith("cuda"):
+        torch.cuda.empty_cache()
+    return out
+
+
+def first_divergence(torch, cfg, params, prompt, a, b):
+    """(index, CPU top-2 logit gap) at the first generated token where
+    streams a and b differ, or None."""
+    from repro_torch.models import transformer as tf
+    for j, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            seq = torch.tensor([prompt + a[:j]], dtype=torch.long)
+            logits, _ = tf.forward(params, {"tokens": seq}, cfg)
+            top2 = torch.topk(logits[0, -1], 2).values
+            return j, float(top2[0] - top2[1])
+    return None
+
+
+def to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(to_device(v, device) for v in tree)
+    return tree.to(device)
+
+
+def check_lm_against_cpu(torch, cfg, device, errors):
+    """Phase 7b: qwen at full width and depth 2, the card against the CPU."""
+    import numpy as np
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.api import EngineConfig
+    from repro_torch.serve.core import EngineCore
+    from repro_torch.serve.runners.lm import LMRunner
+    params = tf.init_params(torch.Generator(device=device).manual_seed(1), cfg, device)
+    cpu = to_device(params, "cpu")
+
+    rng = np.random.default_rng(8)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab, (LM_SLOTS, 16)))
+    pos0, take = torch.tensor([0, 3, 0, 7]), torch.tensor([16, 11, 16, 6])
+    _, card, _ = tf.decode_chunk(params, tf.init_cache(cfg, LM_SLOTS, 64, device),
+                                 toks.to(device), pos0.to(device), take.to(device), cfg)
+    _, ref, _ = tf.decode_chunk(cpu, tf.init_cache(cfg, LM_SLOTS, 64), toks, pos0, take, cfg)
+    card = card.cpu()
+    worst, flips, clear = 0.0, 0, 0
+    for r in range(LM_SLOTS):
+        cols = slice(0, int(take[r]))
+        worst = max(worst, (card[r, cols] - ref[r, cols]).abs().max().item())
+        top2 = torch.topk(ref[r, cols], 2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > LM_CPU_TOL
+        clear += int(sure.sum())
+        flips += int((card[r, cols].argmax(-1) != ref[r, cols].argmax(-1))[sure].sum())
+    if worst > LM_CPU_TOL or flips:
+        errors.append(f"lm card vs CPU: max|dlogits| {worst} (tol {LM_CPU_TOL}), "
+                      f"{flips} argmax flips where the CPU's top-2 gap exceeds it")
+
+    prompts = [rng.integers(1, cfg.vocab, n).tolist() for n in (3, 17, 40, 9)]
+    streams = {}
+    for dev, p in ((device, params), ("cpu", cpu)):
+        core = EngineCore(LMRunner(cfg, p, max_seq=64, device=dev),
+                          EngineConfig(slots=LM_SLOTS, prefill_chunk=LM_CHUNK))
+        ids = [core.submit(q, max_new_tokens=8) for q in prompts]
+        res = core.run_until_complete()
+        streams[dev] = [res[i].outputs[len(q):] for i, q in zip(ids, prompts)]
+    diverged = []
+    for q, a, b in zip(prompts, streams["cpu"], streams[device]):
+        d = first_divergence(torch, cfg, cpu, q, a, b)
+        if d is not None:
+            diverged.append(d)
+            if d[1] > LM_CPU_TOL:
+                errors.append(f"lm card vs CPU: greedy streams differ at token {d[0]} "
+                              f"where the CPU's top-2 gap is {d[1]}")
+    print(f"lm card vs CPU ({cfg.n_layers} layers, full width): decode_chunk max|dlogits| "
+          f"{worst:.3e} (tol {LM_CPU_TOL}) over {int(take.sum())} columns, argmax equal at "
+          f"all {clear} columns with a top-2 gap above tol; served streams "
+          f"{'equal' if not diverged else f'diverge at (token, top-2 gap) {diverged}'}")
+    return {"max_dlogits": worst, "clear_columns": clear, "diverged": diverged}, params
+
+
+def check_serve_lm_w4(torch, errors):
+    """Phase 7c: `launch/serve_lm_w4.py --full`, the int4 matmul's main path."""
+    from repro_torch.kernels import CUDA_LAUNCHES, reset_cuda_launches
+    from repro_torch.launch import serve_lm_w4
+    reset_cuda_launches()
+    res = serve_lm_w4.main(["--full"])
+    torch.cuda.synchronize()
+    launches = dict(CUDA_LAUNCHES)
+    if res["err"] > 1e-4 * max(1.0, res["y"].abs().max().item()) or \
+            launches["int4_matmul"] != 1:
+        errors.append(f"serve_lm_w4 --full: err {res['err']} launches {launches}")
+    return {"launches": launches, "err": res["err"], "streams": res["streams"]}
+
+
+def check_prefill_attention(torch, cfg, params, errors, seq=2048):
+    """Phase 7d: layer 0 of a 2048-token prefill: embed -> rmsnorm -> q/k/v,
+    through `flash_attention` and the model's `chunked_causal_attention`."""
+    import numpy as np
+    from repro_torch.kernels import CUDA_LAUNCHES, reset_cuda_launches
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.models import attention, layers
+    from repro_torch.models import transformer as tf
+    toks = torch.from_numpy(np.random.default_rng(9).integers(1, cfg.vocab, (1, seq))).cuda()
+    p0 = tf._period(params["periods"], 0)["slot0"]
+    h = layers.rmsnorm(tf._embed(params, {"tokens": toks}, cfg), p0["norm1"], cfg.norm_eps)
+    q, k, v = attention._project_qkv(p0["attn"], h, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                                     cfg.rope_theta, torch.arange(seq, device="cuda")[None])
+    reset_cuda_launches()
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    launches = dict(CUDA_LAUNCHES)
+    chunked = lambda: attention.chunked_causal_attention(q, k, v, q_chunk=cfg.q_chunk,
+                                                         kv_chunk=cfg.kv_chunk)
+    err = (out - chunked()).abs().max().item()
+    if err > 5e-5 or launches["flash_attention"] != 1:
+        errors.append(f"prefill attention: flash vs chunked {err} launches {launches}")
+    flash_ms, chunked_ms = cuda_ms(torch, lambda: flash_attention(q, k, v), reps=5), \
+        cuda_ms(torch, chunked, reps=5)
+    print(f"lm layer-0 prefill attention, S={seq}: flash_attention vs chunked_causal_attention "
+          f"(q_chunk {cfg.q_chunk}, kv_chunk {cfg.kv_chunk}) max|d| {err:.3e} (tol 5e-5); "
+          f"ms {flash_ms:.4f} vs {chunked_ms:.4f}")
+    return {"launches": launches, "err": err, "flash_ms": flash_ms, "chunked_ms": chunked_ms}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -540,7 +899,7 @@ def main() -> None:
         fail(f"no src/repro_torch beside {os.path.basename(__file__)}: run from a checkout")
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import repro_torch  # noqa: F401  (sets the TF32 flags)
-    from repro_torch.configs import vgg9_snn
+    from repro_torch.configs import get_arch, vgg9_snn
     from repro_torch.kernels import _build
     from repro_torch.models.vgg9 import init_vgg9
 
@@ -567,6 +926,7 @@ def main() -> None:
           f"in {built['seconds']:.1f} s")
 
     # 3. kernels
+    qwen = get_arch("qwen1.5-4b").with_(dtype="float32")
     cfg = vgg9_snn.CIFAR10
     gen = torch.Generator(device="cuda").manual_seed(0)
     dense_shape, mm_shapes, epi_shapes = main_path_shapes(cfg, SLOTS)
@@ -577,6 +937,8 @@ def main() -> None:
         "dense_conv_lif": check_dense_conv_lif(torch, dense_shape, cfg.timesteps, gen),
         "spike_matmul": check_spike_matmul_gated(torch, gated_shapes, gen),
         "lif_step": check_lif_step(torch, lif_shapes, gen),
+        "int4_matmul": check_int4_matmul(torch, int4_shapes(qwen, LM_SLOTS, LM_MAX_SEQ), gen),
+        "flash_attention": check_flash_attention(torch, gen, qwen.n_heads, qwen.hd),
     }
     failed = []
     for kname, rows in table.items():
@@ -633,17 +995,32 @@ def main() -> None:
     if errors:
         fail("; ".join(errors))
 
+    # 7. lm
+    lm = {"serve": check_lm_serving(torch, qwen, "cuda", errors)}
+    lm["cpu"], params2 = check_lm_against_cpu(torch, qwen.with_(n_layers=2), "cuda", errors)
+    lm["attention"] = check_prefill_attention(torch, qwen.with_(n_layers=2), params2, errors)
+    del params2
+    torch.cuda.empty_cache()
+    lm["serve_lm_w4"] = check_serve_lm_w4(torch, errors)
+    print(f"phase 7 lm: {len(errors)} errors")
+    if errors:
+        fail("; ".join(errors))
+
     csrc = "src/repro_torch/kernels/{}/csrc/{}.cu"
     sources = {"spike_matmul_mapped": csrc.format("spike_conv", "spike_matmul_mapped"),
                "lif_epilogue_scan": csrc.format("lif_step", "lif_epilogue_scan"),
                "dense_conv_lif": csrc.format("dense_conv_lif", "dense_conv_lif"),
                "spike_matmul": csrc.format("spike_conv", "spike_matmul"),
-               "lif_step": csrc.format("lif_step", "lif_step")}
+               "lif_step": csrc.format("lif_step", "lif_step"),
+               "int4_matmul": csrc.format("int4_matmul", "int4_matmul"),
+               "flash_attention": csrc.format("flash_attention", "flash_attention")}
     replaces = {"spike_matmul_mapped": "src/repro/kernels/spike_conv/spike_conv.py:119",
                 "lif_epilogue_scan": "src/repro/kernels/lif_step/lif_step.py:72",
                 "dense_conv_lif": "src/repro/kernels/dense_conv_lif/dense_conv_lif.py:40",
                 "spike_matmul": "src/repro/kernels/spike_conv/spike_conv.py:57",
-                "lif_step": "src/repro/kernels/lif_step/lif_step.py:25"}
+                "lif_step": "src/repro/kernels/lif_step/lif_step.py:25",
+                "int4_matmul": "src/repro/kernels/int4_matmul/int4_matmul.py:47",
+                "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:71"}
     # launches of each kernel in the run of its own main path: serving
     # (phase 4) for the fused pipeline's kernels, the unfused pipeline
     # (phase 5) for the two it alone runs
@@ -651,6 +1028,10 @@ def main() -> None:
                  for k in ("spike_matmul_mapped", "lif_epilogue_scan", "dense_conv_lif")}
     main_runs.update({k: [v["launches"] for v in unfused.values()]
                       for k in ("spike_matmul", "lif_step")})
+    # the LM's kernels: serve_lm_w4 --full (phase 7c) and the layer-0
+    # prefill attention (phase 7d)
+    main_runs["int4_matmul"] = [lm["serve_lm_w4"]["launches"]]
+    main_runs["flash_attention"] = [lm["attention"]["launches"]]
     kernels = []
     for kname, rows in table.items():
         b_total = sum(r["bound_ms"] for r in rows)
@@ -671,7 +1052,8 @@ def main() -> None:
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"device": kind, "nvidia_smi": smi_line, "kernels": table,
-                   "serve": served, "unfused": unfused, "train": trained}, f, indent=1,
+                   "serve": served, "unfused": unfused, "train": trained, "lm": lm}, f,
+                  indent=1,
                   default=str)
     if any(math.isnan(k["ms"]) for k in kernels):
         fail("a kernel time is NaN")

@@ -5,10 +5,16 @@ training (error folded into the loss via straight-through estimation) and
 keeps neuronal parameters (beta, theta, membrane) in float. `fake_quant` is
 the quantize-dequantize of the forward and the STE of the backward, as one
 `torch.autograd.Function`; `qat_params` applies it to a parameter dict.
-`QTensor` and int4 packing arrive with the int4-matmul slice.
+
+Storage side (serving): `quantize_int4` / `dequantize` and `pack_int4` /
+`unpack_int4` hold int4 values two to an int8 byte in a `QTensor`, the
+operand of `kernels.int4_matmul`. The byte layout is the JAX package's,
+bit for bit.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -80,3 +86,62 @@ def qat_params(params, bits_w: int = 4, bits_b: int = 8):
         else:
             out[k] = v
     return out
+
+
+# ---------------------------------------------------------------------------
+# Storage-side quantization (serving / checkpoints)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class QTensor:
+    """Packed quantized tensor: int4 values (2 per int8 byte) + fp32 scale.
+
+    `shape` is the logical (unpacked) shape; packing is along the last axis,
+    which must be even. Scales are per output channel (last axis of the
+    logical weight), shaped to broadcast on dequantize.
+    """
+
+    packed: torch.Tensor   # int8 [..., N // 2]
+    scale: torch.Tensor    # float32, e.g. [1, N] per channel
+    shape: tuple           # logical shape
+    bits: int = 4
+
+    @property
+    def nbytes_logical(self) -> int:
+        return math.prod(self.shape) * self.bits // 8
+
+
+def quantize_int4(w: torch.Tensor, axis: Optional[int] = -1) -> QTensor:
+    """Quantize to int4 (one scale per index of ``axis``, reduced over every
+    other dim; ``None`` for one scale) and pack along the last axis."""
+    qmin, qmax = _qrange(4)
+    if axis is None:
+        s = _scale(w, 4, None)
+    else:
+        s = _scale(w, 4, tuple(i for i in range(w.ndim) if i != axis % w.ndim))
+    q = torch.clamp(torch.round(w / s), qmin, qmax).to(torch.int8)
+    return QTensor(pack_int4(q), s.to(torch.float32), tuple(w.shape), 4)
+
+
+def dequantize(qt: QTensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    q = unpack_int4(qt.packed, qt.shape)
+    return (q.to(dtype) * qt.scale.to(dtype)).reshape(qt.shape)
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """Pack int8 values in [-8, 7] two to a byte along the last axis (even):
+    out[..., i] holds q[..., 2i] in the low nibble, q[..., 2i+1] in the high."""
+    assert q.shape[-1] % 2 == 0, "packing axis must be even"
+    q = q.to(torch.int32)
+    byte = (q[..., 0::2] & 0xF) | ((q[..., 1::2] & 0xF) << 4)      # 0..255
+    return torch.where(byte >= 128, byte - 256, byte).to(torch.int8)
+
+
+def unpack_int4(packed: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """Inverse of `pack_int4`: int8 values in [-8, 7] with ``shape``."""
+    p = packed.to(torch.int32)
+    lo, hi = p & 0xF, (p >> 4) & 0xF
+    lo = torch.where(lo >= 8, lo - 16, lo)          # sign-extend the nibbles
+    hi = torch.where(hi >= 8, hi - 16, hi)
+    out = torch.stack([lo, hi], dim=-1).reshape(*packed.shape[:-1], -1)
+    return out.reshape(shape).to(torch.int8)

@@ -22,7 +22,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -43,6 +43,8 @@ CUDA_LAUNCHES: Dict[str, int] = {
     "dense_conv_lif": 0,
     "spike_matmul": 0,
     "lif_step": 0,
+    "int4_matmul": 0,
+    "flash_attention": 0,
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -151,17 +153,27 @@ def launch(name: str, argtypes: Sequence, *args) -> None:
     CUDA_LAUNCHES[name] += 1
 
 
-def check_cuda_operands(name: str, **tensors: torch.Tensor) -> None:
-    """Raise unless every operand is a contiguous, 16-byte aligned float32
-    CUDA tensor on one device (what the kernels' vector loads assume)."""
+def check_cuda_operands(name: str, dtypes: Optional[Dict[str, Tuple[torch.dtype, ...]]] = None,
+                        **tensors: torch.Tensor) -> None:
+    """Raise unless every operand has a dtype its kernel takes and is a
+    contiguous, 16-byte aligned CUDA tensor, all on one device (what the
+    kernels' vector loads assume).
+
+    ``dtypes`` maps an operand's name to the dtypes allowed for it; an
+    operand it does not name must be float32. The dtype is checked first,
+    so a wrong dtype raises on any device, before anything is launched.
+    """
+    dtypes = dtypes or {}
+    for arg, t in tensors.items():
+        allowed = dtypes.get(arg, (torch.float32,))
+        if t.dtype not in allowed:
+            raise TypeError(f"{name}: {arg} must be one of {allowed}, got {t.dtype}")
     devices = {t.device for t in tensors.values()}
     if len(devices) != 1:
         raise ValueError(f"{name}: operands on several devices {devices}")
     for arg, t in tensors.items():
         if t.device.type != "cuda":
             raise ValueError(f"{name}: {arg} is on {t.device}, not a CUDA device")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: {arg} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
         if t.data_ptr() % 16:

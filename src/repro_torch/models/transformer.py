@@ -1,0 +1,285 @@
+"""Decoder LM: the JAX package's models/transformer.py in PyTorch.
+
+The network is a sequence of *periods*: a fixed pattern of block kinds with
+per-period parameters stacked along a leading ``[n_periods, ...]`` axis, as
+in JAX (where `lax.scan` walks them); here a Python loop indexes the
+stack, which is a view, not a copy. Pattern remainders live in the
+unscanned ``tail``. Parameter trees use the JAX package's keys, so
+`params_from_numpy` carries a JAX parameter tree across unchanged.
+
+Block kinds ported: ``attn_mlp`` (GQA attention + MLP: the dense
+transformers) and ``local_attn`` (the same with a sliding window). The
+others (``attn_moe``, ``rglru``, ``mlstm``, ``slstm``) and the vision/audio
+frontends raise `NotImplementedError` until their modules are ported
+(ROADMAP, queue 1 item 7). Without a device mesh the JAX package's
+sharding hooks (`_vocab_shard`, `_seq_shard`, `shard_cotangents`) are
+identities, so the port has none (distribution: ROADMAP, queue 1 item 11).
+
+Serving entry points: `prefill_step`, `init_cache`, `reset_cache_rows`,
+`decode_step`, `decode_chunk` and `rollback_cache_rows`. Caches are
+``{"periods": {"slot<i>": {"k", "v"}}, "tail": (...)}`` with period leaves
+``[n_periods, B, S, KV, hd]``. `decode_step` writes the new KV entries
+into the cache it is given, in place, and returns it; `reset_cache_rows`
+and `rollback_cache_rows` update in place too. `decode_chunk` is a Python
+loop of `decode_step` calls, so it equals sequential steps bit for bit by
+construction.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..configs.base import ArchConfig
+from .attention import attention_block, attention_decode, attn_init, init_kv_cache
+from .layers import dense_init, embed_init, mlp_apply, mlp_init, rmsnorm, rmsnorm_init
+
+ATTN_KINDS = ("attn_mlp", "local_attn")
+
+
+def _dtype(cfg: ArchConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to PyTorch yet (ROADMAP, queue 1 item 7); "
+        f"the port runs the block kinds {ATTN_KINDS}")
+
+
+# ===========================================================================
+# Parameter init
+# ===========================================================================
+
+def init_block(gen: torch.Generator, cfg: ArchConfig, kind: str, device="cpu",
+               lead: Tuple[int, ...] = ()) -> Dict[str, Any]:
+    """One block's parameters, or ``lead`` stacked blocks drawn at once."""
+    if kind not in ATTN_KINDS:
+        raise _not_ported(f"block kind {kind!r}")
+    dt, d = _dtype(cfg), cfg.d_model
+    return {
+        "norm1": rmsnorm_init(d, dt, device, lead),
+        "attn": attn_init(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.qkv_bias, dt,
+                          device, lead),
+        "norm2": rmsnorm_init(d, dt, device, lead),
+        "mlp": mlp_init(gen, d, cfg.d_ff, cfg.mlp_act, dt, device, lead),
+    }
+
+
+def init_params(gen: torch.Generator, cfg: ArchConfig, device="cpu") -> Dict[str, Any]:
+    """Random parameters from ``gen`` (a generator on ``device``): the
+    JAX package's tree and shapes, other numbers (torch's generator)."""
+    if cfg.frontend:
+        raise _not_ported(f"the {cfg.frontend!r} frontend")
+    dt = _dtype(cfg)
+    params: Dict[str, Any] = {
+        "embed": {"w_tok": embed_init(gen, cfg.vocab, cfg.d_model, dt, device)},
+        "final_norm": rmsnorm_init(cfg.d_model, dt, device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {"w": dense_init(gen, cfg.d_model, cfg.vocab, dt, device)}
+    params["periods"] = {f"slot{si}": init_block(gen, cfg, kind, device, (cfg.n_periods,))
+                         for si, kind in enumerate(cfg.pattern)}
+    params["tail"] = tuple(init_block(gen, cfg, kind, device) for kind in cfg.tail)
+    return params
+
+
+def params_from_numpy(tree, device="cpu"):
+    """A JAX parameter (or cache) tree, as numpy arrays, to torch tensors on
+    ``device`` under the same keys (tuples stay tuples)."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(params_from_numpy(v, device) for v in tree)
+    return torch.from_numpy(np.array(tree)).to(device)
+
+
+def _period(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
+    """Period ``i`` of a stacked tree: views into each leaf."""
+    return {k: _period(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+# ===========================================================================
+# Forward blocks
+# ===========================================================================
+
+def _apply_block(kind: str, p: Dict, x: torch.Tensor, cfg: ArchConfig
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Residual block application. Returns (x, aux_loss)."""
+    if kind not in ATTN_KINDS:
+        raise _not_ported(f"block kind {kind!r}")
+    aux = torch.zeros((), device=x.device)
+    h = rmsnorm(x, p["norm1"], cfg.norm_eps)
+    x = x + attention_block(
+        p["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.hd, rope_theta=cfg.rope_theta,
+        window=cfg.window if kind == "local_attn" else 0,
+        q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk, f32_streams=cfg.attn_f32_streams)
+    h2 = rmsnorm(x, p["norm2"], cfg.norm_eps)
+    return x + mlp_apply(p["mlp"], h2, cfg.mlp_act), aux
+
+
+def _embed(params: Dict, batch: Dict, cfg: ArchConfig) -> torch.Tensor:
+    if cfg.frontend:
+        raise _not_ported(f"the {cfg.frontend!r} frontend")
+    return params["embed"]["w_tok"][batch["tokens"]]
+
+
+def _unembed(params: Dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return x @ params["embed"]["w_tok"].T
+    return x @ params["lm_head"]["w"]
+
+
+def forward(params: Dict, batch: Dict, cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full forward: batch {tokens [B,S]} -> (logits [B,S,V], aux)."""
+    x = _embed(params, batch, cfg)
+    aux = torch.zeros((), device=x.device)
+    for i in range(cfg.n_periods):
+        slot_params = _period(params["periods"], i)
+        for si, kind in enumerate(cfg.pattern):
+            x, a = _apply_block(kind, slot_params[f"slot{si}"], x, cfg)
+            aux = aux + a
+    for i, kind in enumerate(cfg.tail):
+        x, a = _apply_block(kind, params["tail"][i], x, cfg)
+        aux = aux + a
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return _unembed(params, x, cfg), aux
+
+
+def prefill_step(params: Dict, batch: Dict, cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Prefill: forward over the prompt, returning last-position logits."""
+    logits, aux = forward(params, batch, cfg)
+    return logits[:, -1:], aux
+
+
+# ===========================================================================
+# Serving: cache init, decode
+# ===========================================================================
+
+def _init_block_cache(kind: str, cfg: ArchConfig, batch: int, seq_len: int, dt, device,
+                      lead: Tuple[int, ...] = ()) -> Dict:
+    if kind == "attn_mlp":
+        return init_kv_cache(batch, seq_len, cfg.n_kv_heads, cfg.hd, dt, device, lead)
+    if kind == "local_attn":
+        return init_kv_cache(batch, min(cfg.window, seq_len), cfg.n_kv_heads, cfg.hd, dt,
+                             device, lead)
+    raise _not_ported(f"block kind {kind!r}")
+
+
+def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device="cpu") -> Dict[str, Any]:
+    dt = _dtype(cfg)
+    periods = {f"slot{si}": _init_block_cache(kind, cfg, batch, seq_len, dt, device,
+                                              (cfg.n_periods,))
+               for si, kind in enumerate(cfg.pattern)}
+    tail = tuple(_init_block_cache(kind, cfg, batch, seq_len, dt, device) for kind in cfg.tail)
+    return {"periods": periods, "tail": tail}
+
+
+def _leaves(cache: Dict[str, Any]):
+    """(leaf, batch axis) for every cache tensor: period leaves carry the
+    period axis first."""
+    out = []
+    for blk in cache["periods"].values():
+        out += [(leaf, 1) for leaf in blk.values()]
+    for blk in cache["tail"]:
+        out += [(leaf, 0) for leaf in blk.values()]
+    return out
+
+
+def reset_cache_rows(cache: Dict[str, Any], fresh: Dict[str, Any],
+                     keep: torch.Tensor) -> Dict[str, Any]:
+    """Copy ``fresh`` rows into ``cache`` where ``keep`` [B] is False, in
+    place (``fresh`` must be a separate tree from `init_cache`); returns
+    ``cache``. Continuous serving resets a finished request's slot before
+    the slot's next occupant."""
+    reset = torch.nonzero(~torch.as_tensor(keep, dtype=torch.bool)).flatten()
+    for (leaf, axis), (src, _) in zip(_leaves(cache), _leaves(fresh)):
+        idx = reset.to(leaf.device)
+        leaf.index_copy_(axis, idx, src.index_select(axis, idx))
+    return cache
+
+
+def _decode_block(kind: str, p: Dict, x: torch.Tensor, cache: Dict, pos, cfg: ArchConfig,
+                  active: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
+    if kind not in ATTN_KINDS:
+        raise _not_ported(f"block kind {kind!r}")
+    h = rmsnorm(x, p["norm1"], cfg.norm_eps)
+    y, cache = attention_decode(
+        p["attn"], h, cache, pos, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.hd, rope_theta=cfg.rope_theta,
+        window=cfg.window if kind == "local_attn" else 0, active=active)
+    x = x + y
+    h2 = rmsnorm(x, p["norm2"], cfg.norm_eps)
+    return x + mlp_apply(p["mlp"], h2, cfg.mlp_act), cache
+
+
+def decode_step(params: Dict, cache: Dict, batch: Dict, pos, cfg: ArchConfig,
+                active: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
+    """One-token decode. batch {tokens [B,1]}; pos: a position shared by
+    the batch, or a [B] vector of per-request positions.
+
+    active: optional bool [B]; rows with active=False write no KV entry.
+    Updates ``cache`` in place and returns (logits [B,1,V], cache)."""
+    x = params["embed"]["w_tok"][batch["tokens"]]
+    for i in range(cfg.n_periods):
+        slot_params = _period(params["periods"], i)
+        slot_cache = _period(cache["periods"], i)
+        for si, kind in enumerate(cfg.pattern):
+            x, _ = _decode_block(kind, slot_params[f"slot{si}"], x, slot_cache[f"slot{si}"],
+                                 pos, cfg, active)
+    for i, kind in enumerate(cfg.tail):
+        x, _ = _decode_block(kind, params["tail"][i], x, cache["tail"][i], pos, cfg, active)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return _unembed(params, x, cfg), cache
+
+
+def decode_chunk(params: Dict, cache: Dict, tokens: torch.Tensor, pos0, take,
+                 cfg: ArchConfig, active: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
+    """Chunk-masked multi-token decode: per-row ragged token chunks.
+
+    tokens: int [B, C]; row i consumes ``tokens[i, :take[i]]`` at positions
+    ``pos0[i] .. pos0[i] + take[i] - 1``; later columns are masked for that
+    row (cache frozen, outputs ignored). This is the serving engine's
+    chunked prefill and the speculative-verify launch. C `decode_step`
+    calls with per-column active masks.
+
+    Returns (picks [B, C] greedy argmax per column, logits [B, C, V], cache).
+    """
+    b, c = tokens.shape
+    dev = tokens.device
+    pos0 = torch.as_tensor(pos0, device=dev).long().expand(b)
+    take = torch.as_tensor(take, device=dev).long().expand(b)
+    base = torch.ones(b, dtype=torch.bool, device=dev) if active is None \
+        else torch.as_tensor(active, device=dev)
+    picks, logits = [], []
+    for t in range(c):
+        step_logits, cache = decode_step(params, cache, {"tokens": tokens[:, t:t + 1]},
+                                         pos0 + t, cfg, active=base & (t < take))
+        last = step_logits[:, -1]                                 # [B, V]
+        picks.append(torch.argmax(last, dim=-1))
+        logits.append(last)
+    return torch.stack(picks, dim=1), torch.stack(logits, dim=1), cache
+
+
+def rollback_cache_rows(cache: Dict, keep_len, rows) -> Dict:
+    """Zero KV entries at positions ``>= keep_len[b]`` for the rows where
+    ``rows`` [B] is True, in place; returns ``cache``.
+
+    The speculative-decode rollback: a verify launch writes K+1 KV entries
+    per drafting row, and zeroing the rejected suffix restores the state a
+    never-speculated session holds. Valid only for position-indexed KV
+    caches (``attn_mlp``); the ring buffer of ``local_attn`` cannot roll
+    back (`serve.runners.lm` gates speculation off for it)."""
+    for leaf, axis in _leaves(cache):
+        keep_len = torch.as_tensor(keep_len, device=leaf.device).long()
+        rows = torch.as_tensor(rows, dtype=torch.bool, device=leaf.device)
+        seq = leaf.shape[axis + 1]
+        idx = torch.arange(seq, device=leaf.device)
+        keep = (~rows[:, None]) | (idx[None, :] < keep_len[:, None])     # [B, S]
+        shape = [1] * leaf.ndim
+        shape[axis], shape[axis + 1] = keep.shape
+        leaf.masked_fill_(~keep.reshape(shape), 0)
+    return cache

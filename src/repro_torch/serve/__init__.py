@@ -1,8 +1,10 @@
-"""Serving: the engine core and the SNN runner over the hybrid pipeline.
+"""Serving: the engine core and its runners (`runners.SNNRunner` over the
+hybrid pipeline, `runners.LMRunner` over the decoder LM).
 
-`api`, `scheduler`, `core` and `sampling` are numpy-only copies of the JAX
-package's control plane, kept so the port stands alone; the engine runs
-with ``obs=None`` (the observability plane arrives with the fleet).
+`api`, `scheduler`, `core`, `sampling` and `speculative` are numpy-only
+copies of the JAX package's control plane, kept so the port stands alone;
+the engine runs with ``obs=None`` (the observability plane arrives with
+the fleet).
 """
 from .api import (EngineConfig, EngineStalled, ModelRunner, PAD_REQUEST_ID,
                   QueueFull, Request, RequestOptions, Result, RunnerSession,

@@ -1,4 +1,5 @@
-"""Workload runners for the serving engine (the SNN runner in this slice)."""
+"""Pluggable workload runners for the serving engine."""
+from .lm import LMRunner
 from .snn import SNNRunner
 
-__all__ = ["SNNRunner"]
+__all__ = ["LMRunner", "SNNRunner"]

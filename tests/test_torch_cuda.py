@@ -13,18 +13,26 @@ each other (both sum k ascending); the LIF kernels bit-identical; the dense
 core's u within 1e-5 and its spikes equal wherever u is clear of theta; the
 unfused pipeline bit-identical to the fused one; a training step's loss
 within 1e-4 and each gradient's relative L2 difference within 1e-3 of the
-CPU's (cuDNN and the CPU sum in different orders).
+CPU's (cuDNN and the CPU sum in different orders). The int4 matmul within
+1e-4 * max(1, max|ref|) (integer weights, fp32 sums in another order);
+flash attention within 5e-5 in fp32 and within one bf16 step of the
+largest output in bf16; LM logits on the card within 1e-3 of the CPU's.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import vgg9_snn
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.quant import quantize_int4
 from repro_torch.kernels import CUDA_LAUNCHES, reset_cuda_launches
 from repro_torch.kernels.dense_conv_lif import ops as dense_ops
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.int4_matmul import ops as int4_ops
 from repro_torch.kernels.lif_step import ops as lif_ops
 from repro_torch.kernels.spike_conv import ops as sc_ops
-from repro_torch.models import vgg9
+from repro_torch.models import attention, vgg9
+from repro_torch.models import transformer as tf
 
 BETA, THETA = 0.15, 0.5
 
@@ -117,7 +125,8 @@ def test_pipeline_matches_cpu(cuda, name):
     reset_cuda_launches()
     gpu = vgg9.vgg9_infer_hybrid(gpu_params, imgs, cfg, device="cuda", return_stats=True)
     assert dict(CUDA_LAUNCHES) == {"dense_conv_lif": 1, "spike_matmul_mapped": 3,
-                                   "lif_epilogue_scan": 5, "spike_matmul": 0, "lif_step": 0}
+                                   "lif_epilogue_scan": 5, "spike_matmul": 0, "lif_step": 0,
+                                   "int4_matmul": 0, "flash_attention": 0}
     assert (gpu[0].cpu() - cpu[0]).abs().max().item() <= 1e-5
     for k in cpu[1]:
         assert int(gpu[1][k]) == int(cpu[1][k]), k
@@ -194,3 +203,67 @@ def test_training_grads_match_cpu(cuda, name):
         for k, g in leaf.items():
             diff = (gpu_grads[layer][k].cpu() - g).norm().item()
             assert diff <= 1e-3 * max(g.norm().item(), 1e-12), (layer, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(4, 2560, 6912), (512, 6912, 2560), (17, 96, 130),
+                                   (5, 33, 18)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int4_matmul_matches_plain(cuda, m, k, n, dtype):
+    qt = quantize_int4(_normal(29, (k, n)).to(cuda))
+    x = _normal(30, (m, k)).to(cuda).to(dtype)
+    before = CUDA_LAUNCHES["int4_matmul"]
+    out = int4_ops.int4_matmul(x, qt.packed, qt.scale)
+    torch.cuda.synchronize()
+    assert CUDA_LAUNCHES["int4_matmul"] == before + 1 and out.dtype == torch.float32
+    ref = int4_ops.int4_matmul_plain(x, qt.packed, qt.scale)
+    assert (out - ref).abs().max().item() <= 1e-4 * max(1.0, ref.abs().max().item())
+    # a row's result does not depend on the rows beside it (the row is
+    # copied: the wrappers take 16-byte aligned operands, and a row view
+    # of a [5, 33] tensor starts 132 bytes in)
+    assert torch.equal(int4_ops.int4_matmul(x[1:2].clone(), qt.packed, qt.scale), out[1:2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,s,hd", [(20, 512, 128), (3, 100, 64), (2, 130, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain(cuda, bh, s, hd, dtype):
+    q, k, v = (_normal(31 + i, (bh, s, hd)).to(cuda).to(dtype) for i in range(3))
+    before = CUDA_LAUNCHES["flash_attention"]
+    out = flash_ops.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert CUDA_LAUNCHES["flash_attention"] == before + 1 and out.dtype == dtype
+    ref = flash_ops.flash_attention_plain(q, k, v)
+    tol = 5e-5 if dtype == torch.float32 else 2 ** -7 * max(1.0, ref.abs().max().item())
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_flash_attention_matches_chunked_gqa(cuda):
+    q, k, v = (_normal(34 + i, (2, 256, h, 64)).to(cuda) for i, h in enumerate((8, 2, 2)))
+    out = flash_ops.flash_attention(q, k, v)
+    ref = attention.chunked_causal_attention(q, k, v, q_chunk=64, kv_chunk=128)
+    assert (out - ref).abs().max().item() <= 5e-5
+
+
+@pytest.mark.cuda
+def test_lm_decode_chunk_matches_cpu(cuda):
+    cfg = ArchConfig(name="t", family="dense", n_layers=2, d_model=256, n_heads=4,
+                     n_kv_heads=2, head_dim=64, d_ff=512, vocab=1000, qkv_bias=True,
+                     dtype="float32", remat="none")
+    params = tf.init_params(torch.Generator().manual_seed(0), cfg)
+    gpu = {"embed": {"w_tok": params["embed"]["w_tok"].to(cuda)},
+           "final_norm": params["final_norm"].to(cuda),
+           "lm_head": {"w": params["lm_head"]["w"].to(cuda)},
+           "periods": {"slot0": {k: ({kk: vv.to(cuda) for kk, vv in v.items()}
+                                     if isinstance(v, dict) else v.to(cuda))
+                                 for k, v in params["periods"]["slot0"].items()}},
+           "tail": ()}
+    toks = torch.from_numpy(np.random.default_rng(37).integers(0, 1000, (3, 6)))
+    pos0, take = torch.tensor([0, 2, 5]), torch.tensor([6, 4, 1])
+    _, ref, _ = tf.decode_chunk(params, tf.init_cache(cfg, 3, 16), toks, pos0, take, cfg)
+    _, out, _ = tf.decode_chunk(gpu, tf.init_cache(cfg, 3, 16, cuda), toks.to(cuda),
+                                pos0.to(cuda), take.to(cuda), cfg)
+    for row in range(3):
+        cols = slice(0, int(take[row]))
+        assert (out[row, cols].cpu() - ref[row, cols]).abs().max().item() <= 1e-3

@@ -116,8 +116,8 @@ def test_mapped_wrapper_counts_calls_not_cuda_launches():
 
 def test_build_covers_every_counted_kernel():
     assert sorted(p.name for p in _build.sources()) == [
-        "dense_conv_lif.cu", "lif_epilogue_scan.cu", "lif_step.cu", "spike_matmul.cu",
-        "spike_matmul_mapped.cu"]
+        "dense_conv_lif.cu", "flash_attention.cu", "int4_matmul.cu", "lif_epilogue_scan.cu",
+        "lif_step.cu", "spike_matmul.cu", "spike_matmul_mapped.cu"]
     assert set(CUDA_LAUNCHES) == {p.stem for p in _build.sources()}
 
 
@@ -143,6 +143,31 @@ def test_build_failure_carries_nvcc_stderr(monkeypatch, tmp_path):
 def test_cuda_operand_checks_refuse_host_tensors():
     with pytest.raises(ValueError, match="not a CUDA device"):
         _build.check_cuda_operands("k", x=torch.zeros(4))
+
+
+def test_cuda_operand_checks_refuse_wrong_dtypes_before_any_launch():
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.int4_matmul import ops as int4_ops
+    before = dict(CUDA_LAUNCHES)
+    x, packed, scale = torch.zeros((4, 8)), torch.zeros((8, 4), dtype=torch.int8), torch.ones(8)
+    # kernels 1-5 still take float32 only
+    with pytest.raises(TypeError, match="patches must be one of"):
+        sc_ops._spike_matmul_cuda(x.double(), x, gate=True)
+    # int4_matmul: x float32 or bf16, packed int8
+    with pytest.raises(TypeError, match="x must be one of"):
+        int4_ops._int4_matmul_cuda(x.half(), packed, scale)
+    with pytest.raises(TypeError, match="packed must be one of"):
+        int4_ops._int4_matmul_cuda(x, packed.to(torch.uint8), scale)
+    # flash_attention: q/k/v float32 or bf16
+    q = torch.zeros((2, 16, 64))
+    with pytest.raises(TypeError, match="k must be one of"):
+        flash_ops._flash_attention_cuda(q, q.double(), q)
+    # the dtypes the kernels take pass the dtype check, and fail on the device
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        int4_ops._int4_matmul_cuda(x.bfloat16(), packed, scale)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        flash_ops._flash_attention_cuda(q.bfloat16(), q.bfloat16(), q.bfloat16())
+    assert CUDA_LAUNCHES == before
 
 
 def test_wrappers_refuse_devices_without_a_kernel():

@@ -110,7 +110,10 @@ def test_import_leaves_jax_and_reference_out():
             "for name in names:\n"
             "    importlib.import_module(name)\n"
             "assert {'repro_torch.train.train_step', 'repro_torch.launch.train_vgg9',"
-            " 'repro_torch.core.coding', 'repro_torch.data.synthetic'} <= set(names)\n"
+            " 'repro_torch.core.coding', 'repro_torch.data.synthetic',"
+            " 'repro_torch.serve.runners.lm', 'repro_torch.launch.serve_lm_w4',"
+            " 'repro_torch.kernels.int4_matmul.ops',"
+            " 'repro_torch.kernels.flash_attention.ops'} <= set(names)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'repro' or m.startswith('repro.'))\n"
             "assert not bad, bad\n"
@@ -139,7 +142,7 @@ def test_cli_serves_on_cpu(capsys):
     assert "'requests_done': 3" in out
 
 
-@pytest.mark.parametrize("flags", [["--workload", "lm"], ["--workers", "2"],
+@pytest.mark.parametrize("flags", [["--slo-ms", "100"], ["--workers", "2"],
                                    ["--replicas", "2"], ["--precision", "adaptive"],
                                    ["--metrics", "json"], ["--data-shard", "2"],
                                    ["--fault-plan", "0=wedge@4"]])
