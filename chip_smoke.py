@@ -41,9 +41,21 @@ Run from the root of a checkout. Phases, one line or block each:
              through `flash_attention`, against the model's own
              `chunked_causal_attention`, the flash kernel's main path.
 
-Phase 3 also holds `int4_matmul` at qwen1.5-4b's projection shapes (decode
-M = 4, prefill M = 512, the LM head, the example's shape) and
-`flash_attention` at 20 heads of 128, S = 512 and 2048, fp32 and bf16.
+Phase 3 holds `spike_matmul_mapped` at spike densities 0.1, 0.33 and 1.0:
+within 1e-4 of the plain product, bit for bit the plain k-ascending sum
+(`spike_matmul_event_plain`) and the in-kernel-gated `spike_matmul`, its
+bitmask and maps exact, at least one block per SM; each row prints the
+block count, the set bits and the event bound beside `bound_ms` (the
+kernels line carries the density-0.1 rows, as in earlier runs). It also
+holds `int4_matmul` at qwen1.5-4b's projection shapes (decode M = 4,
+prefill M = 512, the LM head, the example's shape) and `flash_attention` at
+20 heads of 128, S = 512 and 2048, fp32 and bf16.
+
+    python3 chip_smoke.py --sweep
+
+runs phases 1-2, then times `spike_matmul_mapped` at every block geometry
+it has at each served shape and density (each result held bit for bit
+against the k-ascending sum), and stops there.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero before it. Every per-shape row and serving figure also goes to
@@ -66,6 +78,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+FP32_ADDS = FP32_FLOPS / 2       # fp32 adds/s: one per FMA slot
+# spike densities kernel 1 is held and timed at: 0.1, the densest served
+# layer's 0.33, and every spike set
+DENSITIES = (0.1, 0.33, 1.0)
 
 SLOTS = 8
 BETA, THETA = 0.15, 0.5
@@ -130,41 +146,109 @@ def main_path_shapes(cfg, batch):
     return dense, mm, epi
 
 
-def check_spike_matmul(torch, shapes, gen):
+def event_bound(bytes_moved: float, set_bits: int, n: int):
+    """Kernel 1's event bound: the larger of its bytes at the memory rate
+    and one fp32 add per (set bit, real output column) at half the fp32
+    FMA rate, what an event-driven product that skips every zero spike
+    must still do."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = set_bits * n / FP32_ADDS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def served_mapped_operands(torch, m, k_pad, n, k, bm, gen, density):
+    """Spikes of the given density in the real [M, K] region and an all-zero
+    first tile row; weights in the real [K, N] region; zero padding, as
+    `spike_conv2d_mapped` hands them over."""
     from repro_torch.core.tiling import round_up
+    n_pad = round_up(n, 128)
+    patches = torch.zeros((m, k_pad), device="cuda")
+    patches[:, :k] = (torch.rand((m, k), device="cuda", generator=gen) < density).float()
+    patches[:bm] = 0.0                                       # an all-zero tile row
+    w2d = torch.zeros((k_pad, n_pad), device="cuda")
+    w2d[:k, :n] = torch.randn((k, n), device="cuda", generator=gen) * (2.0 / k) ** 0.5
+    return patches, w2d
+
+
+def check_spike_matmul(torch, shapes, gen, density):
+    """Kernel 1 at the served shapes and one spike density: within 1e-4 of
+    the plain product, bit for bit the plain k-ascending sum and kernel 4,
+    maps and bitmask exact, at least one block per SM."""
     from repro_torch.kernels.spike_conv import ops as sc
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
     for name, m, k_pad, n, k, bm, bk in shapes:
-        n_pad = round_up(n, 128)
-        patches = torch.zeros((m, k_pad), device="cuda")
-        patches[:, :k] = (torch.rand((m, k), device="cuda", generator=gen) < 0.1).float()
-        patches[:bm] = 0.0                                   # an all-zero tile row
-        w2d = torch.zeros((k_pad, n_pad), device="cuda")
-        w2d[:k, :n] = torch.randn((k, n), device="cuda", generator=gen) * (2.0 / k) ** 0.5
+        patches, w2d = served_mapped_operands(torch, m, k_pad, n, k, bm, gen, density)
+        n_pad = w2d.shape[1]
         out, occ, row_occ = sc.spike_matmul_mapped(patches, w2d, block_m=bm, block_k=bk)
+        _, _, _, mask = sc._spike_matmul_mapped_cuda(patches, w2d, block_m=bm, block_k=bk,
+                                                     gate=True)
         ref, ref_occ, ref_row = sc.spike_matmul_mapped_plain(patches, w2d, block_m=bm,
                                                              block_k=bk)
+        event = sc.spike_matmul_event_plain(patches, w2d)
+        gated = sc.spike_matmul(patches, w2d)
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
         tol = 1e-4 * max(1.0, ref.abs().max().item())
-        ok = (torch.equal(occ, ref_occ) and torch.equal(row_occ, ref_row) and err <= tol
-              and occ[0].sum().item() == 0)
+        r_rows, cols = sc.event_geometry(m, k_pad, n_pad, bm, bk, sms)
+        blocks = (m // r_rows) * (n_pad // cols)
+        checks = {"maps": torch.equal(occ, ref_occ) and torch.equal(row_occ, ref_row),
+                  "tol": err <= tol, "zero_rows": out[:bm].abs().max().item() == 0.0
+                  and occ[0].sum().item() == 0,
+                  "event_bits": torch.equal(out, event), "kernel4_bits": torch.equal(out, gated),
+                  "bitmask": torch.equal(mask, sc.spike_bitmask_plain(patches)),
+                  "blocks": blocks >= sms}
         occupied = int(occ.sum().item())
+        set_bits = int((patches != 0).sum().item())
         nk = k_pad // bk
         moved = 4 * (m * k + k * n + m * n) + m * nk + 4 * (m // bm) * nk
         flops = gated_flops(torch, occ, bm, bk, m, k, n)
         b_ms, b_by = bound(moved, flops)
+        e_ms, e_by = event_bound(moved, set_bits, n)
         rows.append(dict(
-            shape=f"{name} M={m} K={k_pad} N={n_pad}", ok=ok, err=err, tol=tol,
-            bytes=moved, flops=flops,
+            shape=f"{name} M={m} K={k_pad} N={n_pad} density={density}",
+            ok=all(checks.values()), failed=[c for c, v in checks.items() if not v],
+            err=err, tol=tol, bytes=moved, flops=flops, set_bits=set_bits,
+            geometry=f"{r_rows}x{cols}", blocks=blocks,
             skip=1 - occupied / occ.numel(),
             ms=cuda_ms(torch, lambda: sc.spike_matmul_mapped(patches, w2d, block_m=bm,
                                                              block_k=bk)),
             plain_ms=cuda_ms(torch, lambda: sc.spike_matmul_mapped_plain(
                 patches, w2d, block_m=bm, block_k=bk)),
             library_ms=cuda_ms(torch, lambda: torch.matmul(patches, w2d)),
-            bound_ms=b_ms, bound_by=b_by))
+            bound_ms=b_ms, bound_by=b_by, event_bound_ms=e_ms, event_bound_by=e_by))
     return rows
+
+
+def sweep_event_geometry(torch, shapes, gen):
+    """Kernel 1's time at every (rows, cols) geometry it has, at each
+    served shape and density; each result held bit for bit against the
+    plain k-ascending sum. Prints one line per (shape, density)."""
+    from repro_torch.kernels.spike_conv import ops as sc
+    failed = []
+    for density in DENSITIES:
+        for name, m, k_pad, n, k, bm, bk in shapes:
+            patches, w2d = served_mapped_operands(torch, m, k_pad, n, k, bm, gen, density)
+            n_pad = w2d.shape[1]
+            event = sc.spike_matmul_event_plain(patches, w2d)
+            times = []
+            for geometry in sc.EVENT_GEOMETRIES:
+                r_rows, cols = geometry
+                if not sc._fits(geometry, m, k_pad, n_pad) or \
+                        (m // r_rows) * (n_pad // cols) < sc.H100_SMS:
+                    continue
+                run = lambda: sc._spike_matmul_mapped_cuda(patches, w2d, block_m=bm,
+                                                           block_k=bk, gate=True,
+                                                           geometry=geometry)
+                if not torch.equal(run()[0], event):
+                    failed.append(f"{name} density={density} {geometry}")
+                times.append(f"{r_rows}x{cols} ({(m // r_rows) * (n_pad // cols)} blocks) "
+                             f"{cuda_ms(torch, run):.4f}")
+            chosen = sc.event_geometry(m, k_pad, n_pad, bm, bk)
+            print(f"  sweep {name} M={m} K={k_pad} N={n_pad} density={density} "
+                  f"(chosen {chosen[0]}x{chosen[1]}): ms " + ", ".join(times),
+                  flush=True)
+    return failed
 
 
 def check_lif_epilogue(torch, shapes, steps, gen):
@@ -500,7 +584,7 @@ def profile_serving(torch, name, cfg, params_cpu, step_ms):
           f"{busy_ms:.3f} ms/step ({100 * busy_ms / step_ms:.1f}% of the step, idle "
           f"{100 - 100 * busy_ms / step_ms:.1f}%)")
     print(f"profile {name}: top device ms/step (launches/step): "
-          + ", ".join(f"{k[:40]} {ms:.3f} ({n})" for k, ms, n in top[:8]))
+          + ", ".join(f"{k[:40]} {ms:.3f} ({n})" for k, ms, n in top[:10]))
     return {"step_ms": step_ms, "forward_ms": forward_ms, "busy_ms_per_step": busy_ms,
             "top": top[:16]}
 
@@ -924,6 +1008,13 @@ def main() -> None:
             print(f"  {line.strip()}")
     print(f"phase 2 build: {len(_build.sources())} sources -> {built['path'].name} "
           f"in {built['seconds']:.1f} s")
+    if "--sweep" in sys.argv[1:]:
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        failed = sweep_event_geometry(torch, main_path_shapes(vgg9_snn.CIFAR10, SLOTS)[1], gen)
+        if failed:
+            fail(f"spike_matmul_mapped differs from the k-ascending sum at {failed}")
+        print("sweep: every geometry bit-identical to the k-ascending sum")
+        return
 
     # 3. kernels
     qwen = get_arch("qwen1.5-4b").with_(dtype="float32")
@@ -931,8 +1022,11 @@ def main() -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     dense_shape, mm_shapes, epi_shapes = main_path_shapes(cfg, SLOTS)
     gated_shapes, lif_shapes = unfused_shapes(cfg, SLOTS)
+    # kernel 1 at density 0.1 goes in the kernels line, as in every
+    # earlier run; its denser rows are held and printed beside it
+    mapped = {d: check_spike_matmul(torch, mm_shapes, gen, d) for d in DENSITIES}
     table = {
-        "spike_matmul_mapped": check_spike_matmul(torch, mm_shapes, gen),
+        "spike_matmul_mapped": mapped[0.1],
         "lif_epilogue_scan": check_lif_epilogue(torch, epi_shapes, cfg.timesteps, gen),
         "dense_conv_lif": check_dense_conv_lif(torch, dense_shape, cfg.timesteps, gen),
         "spike_matmul": check_spike_matmul_gated(torch, gated_shapes, gen),
@@ -941,17 +1035,29 @@ def main() -> None:
         "flash_attention": check_flash_attention(torch, gen, qwen.n_heads, qwen.hd),
     }
     failed = []
-    for kname, rows in table.items():
+    checked = dict(table)
+    checked.update({f"spike_matmul_mapped density={d}": mapped[d] for d in DENSITIES[1:]})
+    for kname, rows in checked.items():
         for r in rows:
             lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
             extra = f" skip={r['skip']:.4f}" if "skip" in r else ""
+            if "event_bound_ms" in r:
+                extra += (f" blocks={r['blocks']} ({r['geometry']}) set_bits={r['set_bits']} "
+                          f"event_bound_ms={r['event_bound_ms']:.4f} ({r['event_bound_by']})"
+                          f" failed={r['failed']}")
             print(f"  {kname} {r['shape']}: ok={r['ok']} err={r['err']:.3e} "
                   f"(tol {r['tol']:.1e}){extra} ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
                   f"library_ms={lib} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}: "
                   f"{r['bytes']:.0f} bytes, {r['flops']:.0f} flops)")
             if not r["ok"]:
                 failed.append(f"{kname} {r['shape']}")
-    print(f"phase 3 kernels: {sum(len(r) for r in table.values())} shapes, "
+    for d in DENSITIES:
+        print(f"  spike_matmul_mapped density={d}: sum over shapes ms="
+              f"{sum(r['ms'] for r in mapped[d]):.4f} library_ms="
+              f"{sum(r['library_ms'] for r in mapped[d]):.4f} bound_ms="
+              f"{sum(r['bound_ms'] for r in mapped[d]):.4f} event_bound_ms="
+              f"{sum(r['event_bound_ms'] for r in mapped[d]):.4f}")
+    print(f"phase 3 kernels: {sum(len(r) for r in checked.values())} shapes, "
           f"{len(failed)} failed")
     if failed:
         fail(f"kernels disagree with their plain versions: {failed}")
@@ -1051,7 +1157,7 @@ def main() -> None:
     out_dir = os.path.join(ROOT, "build")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
-        json.dump({"device": kind, "nvidia_smi": smi_line, "kernels": table,
+        json.dump({"device": kind, "nvidia_smi": smi_line, "kernels": checked,
                    "serve": served, "unfused": unfused, "train": trained, "lm": lm}, f,
                   indent=1,
                   default=str)

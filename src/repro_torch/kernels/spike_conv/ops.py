@@ -9,7 +9,8 @@ kernel, on a CPU tensor its plain version ``spike_matmul_plain``.
 ``spike_conv2d_mapped`` im2cols the binary spikes (plain torch, on the
 spikes' device), pads the problem to the plan's tiles and hands it to
 ``spike_matmul_mapped``: on a CUDA tensor the hand kernel in
-``csrc/spike_matmul_mapped.cu`` (occupancy pre-pass + gated product), on a
+``csrc/spike_matmul_mapped.cu`` (occupancy and bitmask pre-pass, then an
+event-driven product that adds the weight rows the spikes select), on a
 CPU tensor its plain PyTorch version ``spike_matmul_mapped_plain``. Both
 return the output and the occupancy maps at the plan's (block_m x block_k)
 tile geometry, from which the tile-skip stats follow.
@@ -22,6 +23,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 from typing import Dict, Tuple
 
 import torch
@@ -34,11 +36,21 @@ from .ref import im2col
 # name -> number of gated-matmul wrapper calls issued
 KERNEL_LAUNCHES: collections.Counter = collections.Counter()
 
-# rows of one product block of the CUDA kernel; the plan's block_m must be a
-# multiple so each block lies inside one occupancy tile
-CUDA_TILE_M = 128
-CUDA_TILE_N = 128
-CUDA_STEP_K = 16
+# geometries (rows, cols) of the event-driven product
+# (`spike_matmul_mapped.cu`): a block owns `rows` rows (one warp per 4) x
+# `cols` output columns. In this order of preference, which is the order of
+# their times at the served shapes on an H100 (`chip_smoke.py --sweep`):
+# wide blocks of 32-64 rows first, narrower columns where a shape needs
+# them to fill the card. The k axis goes in 32-deep mask words,
+# EVENT_STAGE_WORDS of them a stage, through a ring of EVENT_STAGES
+# shared-memory stages.
+EVENT_GEOMETRIES = ((64, 128), (32, 128), (32, 64), (64, 64), (16, 128), (16, 64))
+EVENT_WORD_K = 32
+EVENT_STAGE_WORDS = 2
+EVENT_STAGES = 3
+EVENT_MAX_SMEM = 225 * 1024      # bytes of shared memory a block takes (227 KB opt-in
+                                 # less room for the kernel's static shared memory)
+H100_SMS = 132
 # output tile and k slice of the in-kernel-gated kernel (`spike_matmul.cu`)
 GATED_TILE_M = 64
 GATED_TILE_N = 64
@@ -166,29 +178,97 @@ def spike_matmul_mapped_plain(patches: torch.Tensor, w2d: torch.Tensor, *,
     return patches @ w2d, occ, row_occupancy(patches, block_k)
 
 
-def _spike_matmul_mapped_cuda(patches, w2d, *, block_m, block_k, gate):
-    _build.check_cuda_operands("spike_matmul_mapped", patches=patches, w2d=w2d)
+def spike_bitmask_plain(patches: torch.Tensor) -> torch.Tensor:
+    """[M, K] spikes -> int32 [M, K/32] words: bit j of word w is 1 iff
+    patches[:, 32w + j] != 0 (what the hand kernel's pre-pass packs)."""
     m, k = patches.shape
-    k2, n = w2d.shape
-    if (k != k2 or m % block_m or block_m % CUDA_TILE_M or k % block_k
-            or block_k % CUDA_STEP_K or n % CUDA_TILE_N):
+    bits = (patches != 0).reshape(m, k // EVENT_WORD_K, EVENT_WORD_K).to(torch.int64)
+    words = (bits << torch.arange(EVENT_WORD_K, device=patches.device)).sum(dim=2)
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
+
+
+def spike_matmul_event_plain(patches: torch.Tensor, w2d: torch.Tensor) -> torch.Tensor:
+    """The hand kernel's product in its own order, on any device: each
+    output element summed in fp32 from +0, k ascending, adding w2d[k] where
+    the spike is set and nothing where it is not. The kernel matches it bit
+    for bit."""
+    acc = torch.zeros((patches.shape[0], w2d.shape[1]), dtype=torch.float32,
+                      device=patches.device)
+    for k in range(patches.shape[1]):
+        acc = acc + torch.where(patches[:, k:k + 1] != 0, w2d[k], 0.0)
+    return acc
+
+
+def event_smem_bytes(rows: int, cols: int, k: int) -> int:
+    """Dynamic shared memory of one product block: the weight ring, a row
+    of zeros, the mask ring, each row's spike list, and the per-word flags
+    and list."""
+    return 4 * (EVENT_STAGES * EVENT_STAGE_WORDS * (EVENT_WORD_K * cols + rows) + cols
+                + rows * EVENT_STAGE_WORDS * 32 + 2 * (k // EVENT_WORD_K))
+
+
+@functools.lru_cache(maxsize=None)
+def event_geometry(m: int, k: int, n: int, block_m: int, block_k: int,
+                   sms: int = H100_SMS) -> Tuple[int, int]:
+    """(rows, cols) of the event-driven product's blocks for
+    [M, K] x [K, N] at the plan's (block_m, block_k): the first of
+    ``EVENT_GEOMETRIES`` that fits and puts at least ``sms`` blocks on the
+    card, else the one that fits with the most blocks. Raises on a geometry
+    the kernel does not take.
+    """
+    if m % block_m or k % block_k or block_k % EVENT_WORD_K or n % 64:
         raise ValueError(
             f"spike_matmul_mapped: unsupported geometry M={m} K={k} N={n} "
             f"block_m={block_m} block_k={block_k} (needs M % block_m == 0, "
-            f"block_m % {CUDA_TILE_M} == 0, K % block_k == 0, "
-            f"block_k % {CUDA_STEP_K} == 0, N % {CUDA_TILE_N} == 0)")
+            f"K % block_k == 0, block_k % {EVENT_WORD_K} == 0, N % 64 == 0)")
+    fits = [g for g in EVENT_GEOMETRIES if _fits(g, m, k, n)]
+    if not fits:
+        raise ValueError(
+            f"spike_matmul_mapped: unsupported geometry M={m} K={k} N={n} (needs "
+            f"M % 16 == 0 and K small enough for {EVENT_MAX_SMEM} bytes of shared memory)")
+    blocks = {g: (m // g[0]) * (n // g[1]) for g in fits}
+    enough = [g for g in fits if blocks[g] >= sms]
+    return enough[0] if enough else max(fits, key=lambda g: blocks[g])
+
+
+def _fits(geometry, m, k, n) -> bool:
+    rows, cols = geometry
+    return (m % rows == 0 and n % cols == 0
+            and event_smem_bytes(rows, cols, k) <= EVENT_MAX_SMEM)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _spike_matmul_mapped_cuda(patches, w2d, *, block_m, block_k, gate, geometry=None):
+    """-> (out, occ, row_occ, the pre-pass's spike bitmask). ``geometry`` =
+    (rows, cols) overrides `event_geometry`'s choice."""
+    _build.check_cuda_operands("spike_matmul_mapped", patches=patches, w2d=w2d)
+    m, k = patches.shape
+    k2, n = w2d.shape
+    if k != k2:
+        raise ValueError(f"spike_matmul_mapped: K={k} != K'={k2}")
+    rows, cols = event_geometry(m, k, n, block_m, block_k, _sm_count(patches.device.index))
+    if geometry is not None:
+        if geometry not in EVENT_GEOMETRIES or not _fits(geometry, m, k, n):
+            raise ValueError(f"spike_matmul_mapped: geometry {geometry} does not fit "
+                             f"M={m} K={k} N={n}")
+        rows, cols = geometry
     out = torch.empty((m, n), dtype=torch.float32, device=patches.device)
     row_occ = torch.empty((m, k // block_k), dtype=torch.int8, device=patches.device)
     occ = torch.empty((m // block_m, k // block_k), dtype=torch.int32,
                       device=patches.device)
+    mask = torch.empty((m, k // EVENT_WORD_K), dtype=torch.int32, device=patches.device)
     c_int = ctypes.c_int
     _build.launch(
         "spike_matmul_mapped",
-        [ctypes.c_void_p] * 5 + [c_int] * 6 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 6 + [c_int] * 8 + [ctypes.c_void_p],
         _build.ptr(patches), _build.ptr(w2d), _build.ptr(out),
-        _build.ptr(row_occ), _build.ptr(occ),
-        m, k, n, block_m, block_k, int(gate), _build.stream())
-    return out, occ, row_occ
+        _build.ptr(row_occ), _build.ptr(occ), _build.ptr(mask),
+        m, k, n, block_m, block_k, int(gate), rows, cols, _build.stream())
+    return out, occ, row_occ, mask
 
 
 def spike_matmul_mapped(patches: torch.Tensor, w2d: torch.Tensor, *,
@@ -203,7 +283,7 @@ def spike_matmul_mapped(patches: torch.Tensor, w2d: torch.Tensor, *,
         return spike_matmul_mapped_plain(patches, w2d, block_m=block_m,
                                          block_k=block_k, gate=gate)
     return _spike_matmul_mapped_cuda(patches, w2d, block_m=block_m,
-                                     block_k=block_k, gate=gate)
+                                     block_k=block_k, gate=gate)[:3]
 
 
 def spike_conv2d_mapped(

@@ -9,7 +9,7 @@ runs on a machine that has only PyTorch:
 Bars: the gated matmuls' occupancy maps exactly equal and currents within
 1e-4 * max(1, max|ref|) (0/1 inputs make every product exact; only the
 order of the fp32 sum differs), and the two gated matmuls bit-identical to
-each other (both sum k ascending); the LIF kernels bit-identical; the dense
+each other and to the plain k-ascending sum (all three sum k ascending); the LIF kernels bit-identical; the dense
 core's u within 1e-5 and its spikes equal wherever u is clear of theta; the
 unfused pipeline bit-identical to the fused one; a training step's loss
 within 1e-4 and each gradient's relative L2 difference within 1e-3 of the
@@ -70,6 +70,51 @@ def test_spike_matmul_mapped_matches_plain(cuda, m, k, n, block_m):
                                                              block_m=block_m, block_k=128)
     assert torch.equal(occ, ref_occ) and torch.equal(row_occ, ref_row)
     assert (out - ref).abs().max().item() <= 1e-4 * max(1.0, ref.abs().max().item())
+    assert out[:block_m].abs().max().item() == 0.0
+
+
+SERVED_MAPPED = [(16384, 640, 128), (4096, 1024, 256), (4096, 1792, 256), (1024, 2048, 512),
+                 (1024, 4352, 512), (1024, 4608, 640)]   # conv1-6 at CIFAR10 width, 8 slots
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("density", [0.0, 0.1, 0.33, 1.0])
+@pytest.mark.parametrize("m,k,n", SERVED_MAPPED)
+def test_spike_matmul_mapped_bit_identical_to_event_order(cuda, m, k, n, density):
+    """The event-driven kernel at the served shapes: bit for bit the plain
+    k-ascending sum and the in-kernel-gated kernel, its bitmask and maps
+    exactly the plain ones, a row block with no spikes exactly 0."""
+    patches = _spikes(40, (m, k), density).to(cuda)
+    patches[128:256] = 0.0                                   # a row block with no spikes
+    w2d = _normal(41, (k, n), (2.0 / k) ** 0.5).to(cuda)
+    out, occ, row_occ, mask = sc_ops._spike_matmul_mapped_cuda(
+        patches, w2d, block_m=128, block_k=128, gate=True)
+    ref, ref_occ, ref_row = sc_ops.spike_matmul_mapped_plain(patches, w2d, block_m=128,
+                                                             block_k=128)
+    assert torch.equal(mask, sc_ops.spike_bitmask_plain(patches))
+    assert torch.equal(occ, ref_occ) and torch.equal(row_occ, ref_row)
+    assert torch.equal(out, sc_ops.spike_matmul_event_plain(patches, w2d))
+    assert torch.equal(out, sc_ops.spike_matmul(patches, w2d))
+    assert (out - ref).abs().max().item() <= 1e-4 * max(1.0, ref.abs().max().item())
+    assert out[128:256].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_m,gate", [(128, True), (256, True), (256, False)])
+@pytest.mark.parametrize("geometry", sc_ops.EVENT_GEOMETRIES)
+def test_spike_matmul_mapped_every_geometry(cuda, geometry, block_m, gate):
+    """Every (rows, cols) block the kernel has, with the gate on and off."""
+    patches = _spikes(42, (2048, 1024), 0.2).to(cuda)
+    patches[:block_m] = 0.0                                  # an all-zero tile row
+    patches[:, 256:384] = 0.0                                # an all-zero k tile
+    w2d = _normal(43, (1024, 640), 0.05).to(cuda)
+    out, occ, row_occ, mask = sc_ops._spike_matmul_mapped_cuda(
+        patches, w2d, block_m=block_m, block_k=128, gate=gate, geometry=geometry)
+    _, ref_occ, ref_row = sc_ops.spike_matmul_mapped_plain(patches, w2d, block_m=block_m,
+                                                           block_k=128, gate=gate)
+    assert torch.equal(occ, ref_occ) and torch.equal(row_occ, ref_row)
+    assert torch.equal(mask, sc_ops.spike_bitmask_plain(patches))
+    assert torch.equal(out, sc_ops.spike_matmul_event_plain(patches, w2d))
     assert out[:block_m].abs().max().item() == 0.0
 
 

@@ -114,6 +114,88 @@ def test_mapped_wrapper_counts_calls_not_cuda_launches():
     assert dict(CUDA_LAUNCHES) == before                   # the plain path ran
 
 
+# ---------------------------------------------------------------------------
+# the event-driven product's bitmask, sum order and geometry
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("density", [0.0, 0.1, 0.33, 1.0])
+def test_spike_bitmask_plain_matches_packbits(density):
+    p = _spikes(30, (96, 256), density)
+    p[5, 31] = p[6, 63] = 1.0                                # bit 31 of a word
+    p[7, :] = 0.0
+    ref = np.packbits(p != 0, axis=1, bitorder="little").view("<u4").view(np.int32)
+    out = sc_ops.spike_bitmask_plain(torch.from_numpy(p))
+    assert out.dtype == torch.int32 and out.shape == (96, 256 // 32)
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("density", [0.1, 0.33, 1.0])
+def test_spike_matmul_event_plain_matches_mapped_plain(density):
+    p = _spikes(31, (256, 384), density)
+    p[:128] = 0.0                                            # an all-zero tile row
+    w = _normal(32, (384, 128))
+    out = sc_ops.spike_matmul_event_plain(torch.from_numpy(p), torch.from_numpy(w))
+    ref, _, _ = sc_ops.spike_matmul_mapped_plain(torch.from_numpy(p), torch.from_numpy(w),
+                                                 block_m=128, block_k=128)
+    assert out.dtype == torch.float32
+    assert (out - ref).abs().max().item() <= 1e-4 * max(1.0, ref.abs().max().item())
+    assert out[:128].abs().max().item() == 0.0
+
+
+def test_spike_matmul_event_plain_sums_k_ascending():
+    """Each element is the fp32 sum of the selected weights, k ascending,
+    from +0: the numpy loop in that order gives the same bits."""
+    p = _spikes(33, (64, 160), 0.4)
+    w = _normal(34, (160, 64), 1e3) * np.float32(1 + 2 ** -20)
+    acc = np.zeros((64, 64), np.float32)
+    for k in range(160):
+        acc = acc + np.where(p[:, k:k + 1] != 0, w[k], np.float32(0))
+    out = sc_ops.spike_matmul_event_plain(torch.from_numpy(p), torch.from_numpy(w))
+    np.testing.assert_array_equal(out.numpy(), acc)
+
+
+def test_spike_matmul_event_plain_matches_jax_kernel():
+    """The port's order-exact product against the JAX package's
+    `spike_matmul_mapped` in interpret mode, on the same occupancy map."""
+    from repro.kernels.spike_conv.spike_conv import spike_matmul_mapped as jax_mapped
+    p = _spikes(35, (256, 256), 0.2)
+    p[128:, 128:] = 0.0
+    w = _normal(36, (256, 128))
+    occ = jax_sc.occupancy_map(jnp.asarray(p), 128, 128)
+    ref = np.asarray(jax_mapped(jnp.asarray(p), jnp.asarray(w), occ,
+                                jax_sc.skip_load_indices(occ), block_m=128,
+                                block_k=128, block_n=128, interpret=True))
+    out = sc_ops.spike_matmul_event_plain(torch.from_numpy(p), torch.from_numpy(w)).numpy()
+    np.testing.assert_allclose(out, ref, atol=1e-4 * max(1.0, np.abs(ref).max()))
+
+
+@pytest.mark.parametrize("m,k,n", [(16384, 640, 128), (4096, 1024, 256), (4096, 1792, 256),
+                                   (1024, 2048, 512), (1024, 4352, 512), (1024, 4608, 640)])
+def test_event_geometry_fills_the_card_at_served_shapes(m, k, n):
+    rows, cols = sc_ops.event_geometry(m, k, n, 128, 128)
+    assert m % rows == 0 and n % cols == 0
+    assert (m // rows) * (n // cols) >= sc_ops.H100_SMS
+    assert sc_ops.event_smem_bytes(rows, cols, k) <= sc_ops.EVENT_MAX_SMEM
+
+
+@pytest.mark.parametrize("m,k,n,block_m,block_k,match", [
+    (1000, 640, 128, 128, 128, "M % block_m"),            # M not a tile multiple
+    (1024, 600, 128, 128, 128, "K % block_k"),
+    (1024, 640, 128, 128, 80, "block_k % 32"),              # a word would straddle tiles
+    (1024, 640, 96, 128, 128, "N % 64"),
+    (1000, 640, 128, 8, 128, "M % 16"),                     # no 16-row block
+    (1024, 4_194_304, 128, 128, 128, "shared memory"),      # the word list cannot fit
+])
+def test_event_geometry_refuses_what_the_kernel_does_not_take(m, k, n, block_m, block_k,
+                                                               match):
+    with pytest.raises(ValueError, match=match):
+        sc_ops.event_geometry(m, k, n, block_m, block_k)
+
+
+def test_event_geometry_takes_the_most_blocks_when_none_fills_the_card():
+    assert sc_ops.event_geometry(256, 128, 64, 128, 128) == (16, 64)
+
+
 def test_build_covers_every_counted_kernel():
     assert sorted(p.name for p in _build.sources()) == [
         "dense_conv_lif.cu", "flash_attention.cu", "int4_matmul.cu", "lif_epilogue_scan.cu",
