@@ -7,7 +7,10 @@ Run from the root of a checkout. Phases, one line or block each:
 
 1. device  — the card's name, and its name and power limit from nvidia-smi;
 2. build   — nvcc builds every kernel from the sources in the checkout
-             (with -Xptxas -v: registers and spills per kernel);
+             (with -Xptxas -v: registers and spills per kernel); then
+             `cuobjdump -sass` of the library: each bf16 flash kernel must
+             hold HGMMA (wgmma) and UTMALDG (TMA) instructions, and no fp32
+             one a tensor-core instruction (no TF32);
 3. kernels — each hand kernel against its plain PyTorch version on the card,
              at every shape the CIFAR10 serving path (8 slots) and the
              unfused pipeline (8 images) give it, with kernel / plain /
@@ -38,8 +41,9 @@ Run from the root of a checkout. Phases, one line or block each:
              the CPU and the same requests served on both; (c)
              `launch/serve_lm_w4.py --full`, the int4 matmul's main path;
              (d) the layer-0 prefill attention of a 2048-token prompt
-             through `flash_attention`, against the model's own
-             `chunked_causal_attention`, the flash kernel's main path.
+             through `flash_attention`, in fp32 and in bf16, against the
+             model's own `chunked_causal_attention` on the same values in
+             fp32, the flash kernel's main path (a rerun bit-identical).
 
 Phase 3 holds `spike_matmul_mapped` at spike densities 0.1, 0.33 and 1.0:
 within 1e-4 of the plain product, bit for bit the plain k-ascending sum
@@ -49,7 +53,9 @@ block count, the set bits and the event bound beside `bound_ms` (the
 kernels line carries the density-0.1 rows, as in earlier runs). It also
 holds `int4_matmul` at qwen1.5-4b's projection shapes (decode M = 4,
 prefill M = 512, the LM head, the example's shape) and `flash_attention` at
-20 heads of 128, S = 512 and 2048, fp32 and bf16.
+20 heads of 128, S = 512 and 2048, fp32 and bf16, with its achieved
+TFLOP/s, the share of its bound, and its and SDPA's device time from CUDA
+graph replays (`graph_ms`: at S = 512 a call is shorter than its enqueue).
 
     python3 chip_smoke.py --sweep
 
@@ -119,6 +125,79 @@ def cuda_ms(torch, fn, reps=20, warmup=3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(torch, fn, calls=20, replays=5) -> float:
+    """Device ms per call of ``fn``, from replays of a CUDA graph of
+    ``calls`` calls: the time without the host's launch path, which bounds
+    `cuda_ms` where a call is shorter than its enqueue."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
+
+
+# ---------------------------------------------------------------------------
+# phase 2: what the flash kernels were compiled to
+# ---------------------------------------------------------------------------
+
+def sass_counts(lib_path, ops):
+    """{kernel function: {op: instructions}} from `cuobjdump -sass`."""
+    import re
+    import shutil
+    from repro_torch.kernels import _build
+    # cuobjdump comes with nvcc
+    tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True)
+    if out.returncode != 0:
+        fail(f"cuobjdump -sass failed: {out.stderr.strip()[-500:]}")
+    counts, fn = {}, None
+    for line in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = dict.fromkeys(ops, 0)
+        elif fn is not None:
+            for op in ops:
+                if re.search(rf"\b{op}\b", line):
+                    counts[fn][op] += 1
+    return counts
+
+
+def check_flash_sass(lib_path):
+    """The bf16 flash kernels run on tensor cores through TMA (HGMMA and
+    UTMALDG in their SASS); the fp32 ones on no tensor core (no TF32)."""
+    ops = ("HGMMA", "UTMALDG", "HMMA", "LDGSTS")
+    counts = sass_counts(lib_path, ops)
+    bf16 = {f: c for f, c in counts.items() if "flash_bf16_kernel" in f}
+    fp32 = {f: c for f, c in counts.items() if "flash_fp32_kernel" in f}
+    for f, c in {**bf16, **fp32}.items():
+        print(f"  sass {f}: " + " ".join(f"{op}={c[op]}" for op in ops))
+    if len(bf16) != 4 or len(fp32) != 4:   # hd 64/128 x (1 or 2 warpgroups | KV groups)
+        fail(f"expected 4 bf16 and 4 fp32 flash kernels in the SASS, found {sorted(bf16)} "
+             f"{sorted(fp32)}")
+    if any(c["HGMMA"] == 0 or c["UTMALDG"] == 0 for c in bf16.values()):
+        fail(f"a bf16 flash kernel lacks HGMMA or UTMALDG: {bf16}")
+    if any(c["HGMMA"] or c["HMMA"] for c in fp32.values()):
+        fail(f"an fp32 flash kernel uses tensor cores: {fp32}")
+    print(f"sass: bf16 flash kernels HGMMA {[c['HGMMA'] for c in bf16.values()]} UTMALDG "
+          f"{[c['UTMALDG'] for c in bf16.values()]}; fp32 flash kernels no HGMMA/HMMA")
+    return {"bf16": bf16, "fp32": fp32}
 
 
 # ---------------------------------------------------------------------------
@@ -446,6 +525,11 @@ def check_flash_attention(torch, gen, heads=20, hd=128):
                 library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
                     q[None], k[None], v[None], is_causal=True)),
                 bound_ms=b_ms, bound_by=b_by))
+            rows[-1].update(tflops=flops / rows[-1]["ms"] / 1e9,
+                            bound_share=b_ms / rows[-1]["ms"],
+                            graph_ms=graph_ms(torch, lambda: fa.flash_attention_fwd(q, k, v)),
+                            library_graph_ms=graph_ms(torch, lambda: F.scaled_dot_product_attention(
+                                q[None], k[None], v[None], is_causal=True)))
     return rows
 
 
@@ -947,7 +1031,9 @@ def check_serve_lm_w4(torch, errors):
 
 def check_prefill_attention(torch, cfg, params, errors, seq=2048):
     """Phase 7d: layer 0 of a 2048-token prefill: embed -> rmsnorm -> q/k/v,
-    through `flash_attention` and the model's `chunked_causal_attention`."""
+    through `flash_attention` and the model's `chunked_causal_attention`,
+    in fp32 and with q, k, v cast to bf16 (the reference then takes the same
+    bf16 values in fp32)."""
     import numpy as np
     from repro_torch.kernels import CUDA_LAUNCHES, reset_cuda_launches
     from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -956,23 +1042,34 @@ def check_prefill_attention(torch, cfg, params, errors, seq=2048):
     toks = torch.from_numpy(np.random.default_rng(9).integers(1, cfg.vocab, (1, seq))).cuda()
     p0 = tf._period(params["periods"], 0)["slot0"]
     h = layers.rmsnorm(tf._embed(params, {"tokens": toks}, cfg), p0["norm1"], cfg.norm_eps)
-    q, k, v = attention._project_qkv(p0["attn"], h, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                                     cfg.rope_theta, torch.arange(seq, device="cuda")[None])
-    reset_cuda_launches()
-    out = flash_attention(q, k, v)
-    torch.cuda.synchronize()
-    launches = dict(CUDA_LAUNCHES)
-    chunked = lambda: attention.chunked_causal_attention(q, k, v, q_chunk=cfg.q_chunk,
-                                                         kv_chunk=cfg.kv_chunk)
-    err = (out - chunked()).abs().max().item()
-    if err > 5e-5 or launches["flash_attention"] != 1:
-        errors.append(f"prefill attention: flash vs chunked {err} launches {launches}")
-    flash_ms, chunked_ms = cuda_ms(torch, lambda: flash_attention(q, k, v), reps=5), \
-        cuda_ms(torch, chunked, reps=5)
-    print(f"lm layer-0 prefill attention, S={seq}: flash_attention vs chunked_causal_attention "
-          f"(q_chunk {cfg.q_chunk}, kv_chunk {cfg.kv_chunk}) max|d| {err:.3e} (tol 5e-5); "
-          f"ms {flash_ms:.4f} vs {chunked_ms:.4f}")
-    return {"launches": launches, "err": err, "flash_ms": flash_ms, "chunked_ms": chunked_ms}
+    qkv32 = attention._project_qkv(p0["attn"], h, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                                   cfg.rope_theta, torch.arange(seq, device="cuda")[None])
+    res = {}
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        q, k, v = (t.to(dtype) for t in qkv32)
+        reset_cuda_launches()
+        out = flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        launches = dict(CUDA_LAUNCHES)
+        chunked = lambda: attention.chunked_causal_attention(
+            q.float(), k.float(), v.float(), q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+        ref = chunked()
+        err = (out.float() - ref).abs().max().item()
+        # fp32: the JAX test's bar; bf16: one rounding step of the largest output
+        tol = 5e-5 if dtype == torch.float32 else 2 ** -7 * max(1.0, ref.abs().max().item())
+        same = torch.equal(out, flash_attention(q, k, v))
+        if err > tol or not same or launches["flash_attention"] != 1:
+            errors.append(f"prefill attention {name}: flash vs chunked {err} (tol {tol}) "
+                          f"bit-identical rerun {same} launches {launches}")
+        flash_ms, chunked_ms = cuda_ms(torch, lambda: flash_attention(q, k, v), reps=5), \
+            cuda_ms(torch, chunked, reps=5)
+        print(f"lm layer-0 prefill attention {name}, S={seq}: flash_attention vs "
+              f"chunked_causal_attention (q_chunk {cfg.q_chunk}, kv_chunk {cfg.kv_chunk}) "
+              f"max|d| {err:.3e} (tol {tol:.1e}); rerun bit-identical {same}; "
+              f"ms {flash_ms:.4f} vs {chunked_ms:.4f}")
+        res[name] = {"launches": launches, "err": err, "tol": tol, "flash_ms": flash_ms,
+                     "chunked_ms": chunked_ms}
+    return res
 
 
 def main() -> None:
@@ -1008,6 +1105,7 @@ def main() -> None:
             print(f"  {line.strip()}")
     print(f"phase 2 build: {len(_build.sources())} sources -> {built['path'].name} "
           f"in {built['seconds']:.1f} s")
+    sass = check_flash_sass(built["path"])
     if "--sweep" in sys.argv[1:]:
         gen = torch.Generator(device="cuda").manual_seed(0)
         failed = sweep_event_geometry(torch, main_path_shapes(vgg9_snn.CIFAR10, SLOTS)[1], gen)
@@ -1041,6 +1139,10 @@ def main() -> None:
         for r in rows:
             lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
             extra = f" skip={r['skip']:.4f}" if "skip" in r else ""
+            if "tflops" in r:
+                extra += (f" tflops={r['tflops']:.1f} bound_share={r['bound_share']:.3f}"
+                          f" graph_ms={r['graph_ms']:.4f}"
+                          f" library_graph_ms={r['library_graph_ms']:.4f}")
             if "event_bound_ms" in r:
                 extra += (f" blocks={r['blocks']} ({r['geometry']}) set_bits={r['set_bits']} "
                           f"event_bound_ms={r['event_bound_ms']:.4f} ({r['event_bound_by']})"
@@ -1137,7 +1239,7 @@ def main() -> None:
     # the LM's kernels: serve_lm_w4 --full (phase 7c) and the layer-0
     # prefill attention (phase 7d)
     main_runs["int4_matmul"] = [lm["serve_lm_w4"]["launches"]]
-    main_runs["flash_attention"] = [lm["attention"]["launches"]]
+    main_runs["flash_attention"] = [run["launches"] for run in lm["attention"].values()]
     kernels = []
     for kname, rows in table.items():
         b_total = sum(r["bound_ms"] for r in rows)
@@ -1157,7 +1259,7 @@ def main() -> None:
     out_dir = os.path.join(ROOT, "build")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
-        json.dump({"device": kind, "nvidia_smi": smi_line, "kernels": checked,
+        json.dump({"device": kind, "nvidia_smi": smi_line, "sass": sass, "kernels": checked,
                    "serve": served, "unfused": unfused, "train": trained, "lm": lm}, f,
                   indent=1,
                   default=str)

@@ -4,9 +4,9 @@ Every ``kernels/<name>/csrc/*.cu`` file in the package has a plain C
 interface (no PyTorch headers), so each compiles with ``nvcc`` in seconds.
 All of them are compiled in parallel, one ``nvcc`` per source, and linked
 into one shared library under ``build/repro_torch/<hash>/`` at the root of
-the checkout (listed in ``.gitignore``); the hash keys on the sources and
-the flags, so an edited kernel rebuilds and an unchanged one loads from
-disk. If ``nvcc`` fails, the error carries its stderr.
+the checkout (listed in ``.gitignore``); the hash keys on every file under
+``csrc/`` (headers too) and the flags, so an edited kernel rebuilds and an
+unchanged one loads from disk. If ``nvcc`` fails, the error carries its stderr.
 
 Each C entry point launches on the stream it is given, allocates nothing,
 and returns ``cudaGetLastError()``; `launch` raises when that is not 0 and
@@ -34,6 +34,9 @@ NVCC_FALLBACK = "/usr/local/cuda/bin/nvcc"      # where the CUDA toolkit puts it
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = ARCH_FLAGS + ["-O3", "-std=c++17", "-Xcompiler", "-fPIC"]
+# No -lcuda: the one libcuda call (cuTensorMapEncodeTiled, for the flash
+# kernel's TMA maps) is looked up with dlsym at run time; dlopen is libc's.
+LINK_FLAGS = ARCH_FLAGS + ["-shared"]
 
 #: kernel name -> hand-kernel launches issued (bumped only after a launch
 #: that returned cudaSuccess; plain-version calls never count)
@@ -60,11 +63,17 @@ def sources() -> List[Path]:
     return sorted(PACKAGE_DIR.glob("kernels/*/csrc/*.cu"))
 
 
-def _digest(srcs: Sequence[Path]) -> str:
-    h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
-    for src in srcs:
-        h.update(str(src.relative_to(PACKAGE_DIR)).encode())
-        h.update(src.read_bytes())
+def csrc_files() -> List[Path]:
+    """Every file under ``kernels/*/csrc/``: the sources and what they may
+    include."""
+    return sorted(p for p in PACKAGE_DIR.glob("kernels/*/csrc/**/*") if p.is_file())
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    for path in csrc_files():
+        h.update(str(path.relative_to(PACKAGE_DIR)).encode())
+        h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
@@ -84,7 +93,7 @@ def build(*, force: bool = False, ptxas_verbose: bool = False) -> dict:
     ``force`` an existing library for the same sources is reused.
     """
     srcs = sources()
-    out_dir = BUILD_ROOT / _digest(srcs)
+    out_dir = BUILD_ROOT / _digest()
     lib_path = out_dir / LIB_NAME
     if lib_path.exists() and not force:
         return {"path": lib_path, "seconds": 0.0, "log": ""}
@@ -110,7 +119,7 @@ def build(*, force: bool = False, ptxas_verbose: bool = False) -> dict:
             raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
         tmp_lib = Path(tmp) / LIB_NAME
         link = subprocess.run(
-            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp_lib), *map(str, objs)],
+            [nvcc, *LINK_FLAGS, "-o", str(tmp_lib), *map(str, objs)],
             capture_output=True, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")

@@ -4,8 +4,9 @@
 (fp32 or bf16; K/V already broadcast to q's heads), accumulated in fp32
 and returned in q's dtype: on a CUDA tensor the hand kernel in
 ``csrc/flash_attention.cu`` (online softmax, future KV tiles never
-loaded), on a CPU tensor ``flash_attention_plain``, the masked-softmax
-reference. ``flash_attention`` is the GQA wrapper over [B, S, H, hd] q and
+loaded; bf16 on the tensor cores through TMA and ``wgmma``, fp32 on the
+CUDA cores, register-blocked, with cp.async copies), on a CPU tensor
+``flash_attention_plain``, the masked-softmax reference. ``flash_attention`` is the GQA wrapper over [B, S, H, hd] q and
 [B, S, KV, hd] k/v. It computes the same function as the model's
 `models.attention.chunked_causal_attention`; no model path calls it, as
 in the JAX package.

@@ -15,8 +15,10 @@ unfused pipeline bit-identical to the fused one; a training step's loss
 within 1e-4 and each gradient's relative L2 difference within 1e-3 of the
 CPU's (cuDNN and the CPU sum in different orders). The int4 matmul within
 1e-4 * max(1, max|ref|) (integer weights, fp32 sums in another order);
-flash attention within 5e-5 in fp32 and within one bf16 step of the
-largest output in bf16; LM logits on the card within 1e-3 of the CPU's.
+flash attention within 5e-5 in fp32 (5e-5 of the largest output where
+each head's V is offset by 64 * head) and within one bf16 step of the
+largest output in bf16, two calls bit-identical; LM logits on the card
+within 1e-3 of the CPU's.
 """
 import numpy as np
 import pytest
@@ -269,8 +271,14 @@ def test_int4_matmul_matches_plain(cuda, m, k, n, dtype):
     assert torch.equal(int4_ops.int4_matmul(x[1:2].clone(), qt.packed, qt.scale), out[1:2])
 
 
+def _flash_bar(ref, dtype):
+    # fp32: the JAX test's bar; bf16: one rounding step of the largest output
+    return 5e-5 if dtype == torch.float32 else 2 ** -7 * max(1.0, ref.abs().max().item())
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("bh,s,hd", [(20, 512, 128), (3, 100, 64), (2, 130, 128)])
+@pytest.mark.parametrize("bh,s,hd", [(20, 512, 128)] + [
+    (2 if s == 2048 else 3, s, hd) for hd in (64, 128) for s in (1, 100, 128, 130, 512, 2048)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_matches_plain(cuda, bh, s, hd, dtype):
     q, k, v = (_normal(31 + i, (bh, s, hd)).to(cuda).to(dtype) for i in range(3))
@@ -279,16 +287,46 @@ def test_flash_attention_matches_plain(cuda, bh, s, hd, dtype):
     torch.cuda.synchronize()
     assert CUDA_LAUNCHES["flash_attention"] == before + 1 and out.dtype == dtype
     ref = flash_ops.flash_attention_plain(q, k, v)
-    tol = 5e-5 if dtype == torch.float32 else 2 ** -7 * max(1.0, ref.abs().max().item())
-    assert (out.float() - ref.float()).abs().max().item() <= tol
+    assert (out.float() - ref.float()).abs().max().item() <= _flash_bar(ref, dtype)
 
 
 @pytest.mark.cuda
-def test_flash_attention_matches_chunked_gqa(cuda):
-    q, k, v = (_normal(34 + i, (2, 256, h, 64)).to(cuda) for i, h in enumerate((8, 2, 2)))
+@pytest.mark.parametrize("s,hd", [(100, 64), (130, 128), (512, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_keeps_heads_apart(cuda, s, hd, dtype):
+    # each head's V sits 64 * head away from the others: a tile that read
+    # rows of the next head (past S) would pull its output far off
+    bh = 4
+    q, k, v = (_normal(41 + i, (bh, s, hd)) for i in range(3))
+    v = v + 64.0 * torch.arange(bh, dtype=torch.float32)[:, None, None]
+    q, k, v = (t.to(cuda).to(dtype) for t in (q, k, v))
+    out = flash_ops.flash_attention_fwd(q, k, v)
+    ref = flash_ops.flash_attention_plain(q, k, v)
+    # outputs reach 64 * 3 + 4: fp32's bar relative to them (another head's
+    # rows would move an output by ~64)
+    top = max(1.0, ref.abs().max().item())
+    bar = 5e-5 * top if dtype == torch.float32 else _flash_bar(ref, dtype)
+    assert (out.float() - ref.float()).abs().max().item() <= bar
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_is_deterministic(cuda, dtype):
+    q, k, v = (_normal(51 + i, (20, 2048, 128)).to(cuda).to(dtype) for i in range(3))
+    assert torch.equal(flash_ops.flash_attention_fwd(q, k, v), flash_ops.flash_attention_fwd(q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_chunked_gqa(cuda, dtype):
+    q, k, v = (_normal(34 + i, (2, 256, h, 64)).to(cuda).to(dtype)
+               for i, h in enumerate((8, 2, 2)))
     out = flash_ops.flash_attention(q, k, v)
-    ref = attention.chunked_causal_attention(q, k, v, q_chunk=64, kv_chunk=128)
-    assert (out - ref).abs().max().item() <= 5e-5
+    assert out.dtype == dtype
+    # the model's attention on the same (bf16-rounded) values in fp32
+    ref = attention.chunked_causal_attention(q.float(), k.float(), v.float(), q_chunk=64,
+                                             kv_chunk=128)
+    assert (out.float() - ref).abs().max().item() <= _flash_bar(ref, dtype)
 
 
 @pytest.mark.cuda

@@ -203,6 +203,21 @@ def test_build_covers_every_counted_kernel():
     assert set(CUDA_LAUNCHES) == {p.stem for p in _build.sources()}
 
 
+def test_build_digest_keys_on_every_csrc_file(monkeypatch, tmp_path):
+    csrc = tmp_path / "kernels" / "k" / "csrc"
+    csrc.mkdir(parents=True)
+    (csrc / "k.cu").write_text("// kernel\n")
+    monkeypatch.setattr(_build, "PACKAGE_DIR", tmp_path)
+    before = _build._digest()
+    assert [p.name for p in _build.sources()] == ["k.cu"]
+    # a header is not compiled on its own, but an edit to it rebuilds
+    (csrc / "k.cuh").write_text("// header\n")
+    assert [p.name for p in _build.sources()] == ["k.cu"]
+    added = _build._digest()
+    (csrc / "k.cuh").write_text("// header, edited\n")
+    assert len({before, added, _build._digest()}) == 3
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(_build, "NVCC_FALLBACK", str(tmp_path / "no-nvcc"))

@@ -200,6 +200,52 @@ def test_flash_attention_bf16():
     assert flash_ops.KERNEL_LAUNCHES["flash_attention"] == counts + 1
 
 
+def _bf16_kernel_model(q, k, v, block_k=128):
+    """The bf16 CUDA kernel's rounding points, in plain PyTorch: q, k, v
+    [BH, S, hd] bf16; scores summed in fp32 and scaled in fp32 (q is not
+    pre-scaled in bf16; the kernel applies the scale inside its exponent);
+    the TPU kernel's online softmax over KV tiles of ``block_k`` (-1e30
+    masks, alpha rescale, l summing the fp32 p); p rounded to bf16 before
+    P V; the output rounded to bf16 once."""
+    bh, s, hd = q.shape
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full((bh, s, 1), -1e30)
+    l = torch.zeros((bh, s, 1))
+    acc = torch.zeros((bh, s, hd))
+    qpos = torch.arange(s)[:, None]
+    for k0 in range(0, s, block_k):
+        kv = slice(k0, min(k0 + block_k, s))
+        sc = torch.einsum("bqd,bkd->bqk", qf, kf[:, kv]) * (1.0 / hd ** 0.5)
+        sc = torch.where(torch.arange(k0, kv.stop)[None, :] <= qpos, sc, -1e30)
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        p = torch.exp(sc - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bqk,bkd->bqd", p.bfloat16().float(), vf[:, kv])
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)).bfloat16()
+
+
+@pytest.mark.parametrize("s,hd", [(130, 64), (256, 128)])
+def test_flash_attention_bf16_kernel_rounding_within_the_card_bar(s, hd):
+    # the card test's bf16 bar, 2**-7 * max(1, max|ref|), holds for the bf16
+    # kernel's rounding points (P in bf16 before P V) against the TPU
+    # kernel, which keeps P in fp32
+    q, k, v = _qkv(12, 1, s, 2, 1, hd)
+    jq, jk, jv = (jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v))
+    ref = np.asarray(jax_flash(jq, jk, jv, block_q=s, block_k=s, interpret=True), np.float32)
+    tq, tk, tv = (torch.from_numpy(np.asarray(a, np.float32)).bfloat16() for a in (jq, jk, jv))
+    heads = lambda t: t.repeat_interleave(2 // t.shape[2], dim=2).transpose(1, 2).reshape(2, s, hd)
+    out = _bf16_kernel_model(heads(tq), heads(tk), heads(tv))
+    out = out.reshape(1, 2, s, hd).transpose(1, 2).float().numpy()
+    err = np.abs(out - ref).max()
+    assert 0 < err <= 2 ** -7 * max(1.0, np.abs(ref).max())
+    # the plain version (fp32 P) is as close: the model's P rounding is the
+    # only extra step, and it stays within one bf16 step of the output
+    plain = flash_ops.flash_attention(tq, tk, tv).float().numpy()
+    assert np.abs(plain - ref).max() <= 2 ** -7 * max(1.0, np.abs(ref).max())
+
+
 # ---------------------------------------------------------------------------
 # layers
 # ---------------------------------------------------------------------------
