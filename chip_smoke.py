@@ -49,8 +49,16 @@ Phase 3 holds `spike_matmul_mapped` at spike densities 0.1, 0.33 and 1.0:
 within 1e-4 of the plain product, bit for bit the plain k-ascending sum
 (`spike_matmul_event_plain`) and the in-kernel-gated `spike_matmul`, its
 bitmask and maps exact, at least one block per SM; each row prints the
-block count, the set bits and the event bound beside `bound_ms` (the
-kernels line carries the density-0.1 rows, as in earlier runs). It also
+block count and the set bits, and its `bound_ms` is the event bound (one
+add per set bit and real output column, or the bytes if they take longer),
+with the tile-gated FMA count's bound beside it as `tile_bound_ms` (the
+kernels line carries the density-0.1 rows, as in earlier runs). It holds
+`spike_matmul` at the same densities and the unfused pipeline's six
+per-timestep shapes: within 1e-4 of the plain product, bit for bit
+`spike_matmul_mapped` and the k-ascending sum, an all-zero tile row exactly
+0, at least one block per SM; each row prints its geometry, blocks, set
+bits, the same two bounds and CUDA-graph device time (`graph_ms`), which the LIF
+kernels and the dense core also print. It also
 holds `int4_matmul` at qwen1.5-4b's projection shapes (decode M = 4,
 prefill M = 512, the LM head, the example's shape) and `flash_attention` at
 20 heads of 128, S = 512 and 2048, fp32 and bf16, with its achieved
@@ -60,8 +68,9 @@ graph replays (`graph_ms`: at S = 512 a call is shorter than its enqueue).
     python3 chip_smoke.py --sweep
 
 runs phases 1-2, then times `spike_matmul_mapped` at every block geometry
-it has at each served shape and density (each result held bit for bit
-against the k-ascending sum), and stops there.
+it has at each served shape and density, and `spike_matmul` at every
+geometry it has at each of the unfused pipeline's shapes and density (each
+result held bit for bit against the k-ascending sum), and stops there.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero before it. Every per-shape row and serving figure also goes to
@@ -85,8 +94,8 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 FP32_ADDS = FP32_FLOPS / 2       # fp32 adds/s: one per FMA slot
-# spike densities kernel 1 is held and timed at: 0.1, the densest served
-# layer's 0.33, and every spike set
+# spike densities kernels 1 and 4 are held and timed at: 0.1, the densest
+# served layer's 0.33, and every spike set
 DENSITIES = (0.1, 0.33, 1.0)
 
 SLOTS = 8
@@ -226,10 +235,10 @@ def main_path_shapes(cfg, batch):
 
 
 def event_bound(bytes_moved: float, set_bits: int, n: int):
-    """Kernel 1's event bound: the larger of its bytes at the memory rate
-    and one fp32 add per (set bit, real output column) at half the fp32
-    FMA rate, what an event-driven product that skips every zero spike
-    must still do."""
+    """The bound of kernels 1 and 4, whose patches are 0/1 spikes: the
+    larger of their bytes at the memory rate and one fp32 add per (set bit,
+    real output column) at half the fp32 FMA rate, all the function needs
+    (a zero spike adds nothing)."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = set_bits * n / FP32_ADDS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -281,13 +290,13 @@ def check_spike_matmul(torch, shapes, gen, density):
         set_bits = int((patches != 0).sum().item())
         nk = k_pad // bk
         moved = 4 * (m * k + k * n + m * n) + m * nk + 4 * (m // bm) * nk
-        flops = gated_flops(torch, occ, bm, bk, m, k, n)
-        b_ms, b_by = bound(moved, flops)
-        e_ms, e_by = event_bound(moved, set_bits, n)
+        tile_flops = gated_flops(torch, occ, bm, bk, m, k, n)
+        t_ms, t_by = bound(moved, tile_flops)
+        b_ms, b_by = event_bound(moved, set_bits, n)
         rows.append(dict(
             shape=f"{name} M={m} K={k_pad} N={n_pad} density={density}",
             ok=all(checks.values()), failed=[c for c, v in checks.items() if not v],
-            err=err, tol=tol, bytes=moved, flops=flops, set_bits=set_bits,
+            err=err, tol=tol, bytes=moved, adds=set_bits * n, set_bits=set_bits,
             geometry=f"{r_rows}x{cols}", blocks=blocks,
             skip=1 - occupied / occ.numel(),
             ms=cuda_ms(torch, lambda: sc.spike_matmul_mapped(patches, w2d, block_m=bm,
@@ -295,7 +304,8 @@ def check_spike_matmul(torch, shapes, gen, density):
             plain_ms=cuda_ms(torch, lambda: sc.spike_matmul_mapped_plain(
                 patches, w2d, block_m=bm, block_k=bk)),
             library_ms=cuda_ms(torch, lambda: torch.matmul(patches, w2d)),
-            bound_ms=b_ms, bound_by=b_by, event_bound_ms=e_ms, event_bound_by=e_by))
+            bound_ms=b_ms, bound_by=b_by, tile_flops=tile_flops, tile_bound_ms=t_ms,
+            tile_bound_by=t_by))
     return rows
 
 
@@ -347,6 +357,8 @@ def check_lif_epilogue(torch, shapes, steps, gen):
             err=(out - ref).abs().max().item(), tol=0.0,
             ms=cuda_ms(torch, lambda: lif.lif_epilogue_scan(cur, bias, beta=BETA,
                                                             theta=THETA)),
+            graph_ms=graph_ms(torch, lambda: lif.lif_epilogue_scan(cur, bias, beta=BETA,
+                                                                   theta=THETA)),
             plain_ms=cuda_ms(torch, lambda: lif.lif_epilogue_scan_plain(
                 cur, bias, beta=BETA, theta=THETA)),
             library_ms=None, bound_ms=b_ms, bound_by=b_by))
@@ -374,14 +386,16 @@ def check_dense_conv_lif(torch, shape, steps, gen):
     moved = 4 * (m * k + k * n + n + steps * m * n + m * n)
     flops = 2.0 * m * k * n + 5.0 * steps * m * n
     b_ms, b_by = bound(moved, flops)
+    run = lambda: dense.dense_conv_lif(patches, w2d, bias, num_steps=steps, beta=BETA,
+                                       theta=THETA)
+    library = lambda: torch.matmul(patches, w2d)
     return [dict(
         shape=f"conv0 M={m} K={k} N={n} T={steps}", ok=ok, err=err, tol=1e-5,
         bytes=moved, flops=flops,
-        ms=cuda_ms(torch, lambda: dense.dense_conv_lif(patches, w2d, bias, num_steps=steps,
-                                                       beta=BETA, theta=THETA)),
+        ms=cuda_ms(torch, run), graph_ms=graph_ms(torch, run),
         plain_ms=cuda_ms(torch, lambda: dense.dense_conv_lif_plain(
             patches, w2d, bias, num_steps=steps, beta=BETA, theta=THETA)),
-        library_ms=cuda_ms(torch, lambda: torch.matmul(patches, w2d)),
+        library_ms=cuda_ms(torch, library), library_graph_ms=graph_ms(torch, library),
         bound_ms=b_ms, bound_by=b_by)]
 
 
@@ -406,38 +420,96 @@ def unfused_shapes(cfg, batch):
     return mm, lif
 
 
-def check_spike_matmul_gated(torch, shapes, gen):
+# the all-zero first rows of kernel 4's operands: one row of 64-row tiles
+GATED_ZERO_ROWS = 64
+
+
+def served_gated_operands(torch, shape, gen, density):
+    """Spikes of the given density in the real [M, K] region and an
+    all-zero first tile row; weights in the real [K, N] region; zero
+    padding, as `spike_conv2d` hands them over."""
+    _, m_pad, k_pad, n_pad, m, k, n = shape
+    patches = torch.zeros((m_pad, k_pad), device="cuda")
+    patches[:m, :k] = (torch.rand((m, k), device="cuda", generator=gen) < density).float()
+    patches[:GATED_ZERO_ROWS] = 0.0                          # an all-zero tile row
+    w2d = torch.zeros((k_pad, n_pad), device="cuda")
+    w2d[:k, :n] = torch.randn((k, n), device="cuda", generator=gen) * (2.0 / k) ** 0.5
+    return patches, w2d
+
+
+def check_spike_matmul_gated(torch, shapes, gen, density):
+    """Kernel 4 at the unfused pipeline's shapes and one spike density:
+    within 1e-4 of the plain product, bit for bit kernel 1 and the plain
+    k-ascending sum, the all-zero tile row exactly 0, at least one block
+    per SM."""
     from repro_torch.kernels.spike_conv import ops as sc
-    tm, tk = sc.GATED_TILE_M, sc.GATED_TILE_K
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tm, tk = sc.GATED_M, sc.GATED_WORD_K
     rows = []
-    for name, m_pad, k_pad, n_pad, m, k, n in shapes:
-        # spikes and weights in the real region only, zero padding, as
-        # `spike_conv2d` hands them over
-        patches = torch.zeros((m_pad, k_pad), device="cuda")
-        patches[:m, :k] = (torch.rand((m, k), device="cuda", generator=gen) < 0.1).float()
-        patches[:tm] = 0.0                                   # an all-zero tile row
-        w2d = torch.zeros((k_pad, n_pad), device="cuda")
-        w2d[:k, :n] = torch.randn((k, n), device="cuda", generator=gen) * (2.0 / k) ** 0.5
+    for shape in shapes:
+        name, m_pad, k_pad, n_pad, m, k, n = shape
+        patches, w2d = served_gated_operands(torch, shape, gen, density)
         out = sc.spike_matmul(patches, w2d)
         ref = sc.spike_matmul_plain(patches, w2d)
         mapped, _, _ = sc.spike_matmul_mapped(patches, w2d, block_m=128, block_k=128)
+        event = sc.spike_matmul_event_plain(patches, w2d)
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
         tol = 1e-4 * max(1.0, ref.abs().max().item())
-        ok = err <= tol and torch.equal(out, mapped) and out[:tm].abs().max().item() == 0
+        geometry = sc.gated_geometry(m_pad, k_pad, n_pad, sms)
+        blocks = sc.gated_blocks(geometry, m_pad, n_pad)
+        checks = {"tol": err <= tol, "kernel1_bits": torch.equal(out, mapped),
+                  "event_bits": torch.equal(out, event),
+                  "zero_rows": out[:GATED_ZERO_ROWS].abs().max().item() == 0.0,
+                  "blocks": blocks >= sms}
         occ = (patches.reshape(m_pad // tm, tm, k_pad // tk, tk) != 0).any(3).any(1)
+        set_bits = int((patches != 0).sum().item())
         moved = 4 * (m * k + k * n + m * n)
-        flops = gated_flops(torch, occ, tm, tk, m, k, n)
-        b_ms, b_by = bound(moved, flops)
+        tile_flops = gated_flops(torch, occ, tm, tk, m, k, n)
+        t_ms, t_by = bound(moved, tile_flops)
+        b_ms, b_by = event_bound(moved, set_bits, n)
+        run = lambda: sc.spike_matmul(patches, w2d)
+        library = lambda: torch.matmul(patches, w2d)
         rows.append(dict(
-            shape=f"{name} M={m_pad} K={k_pad} N={n_pad} (real {m}x{k}x{n})", ok=ok, err=err,
-            tol=tol, bytes=moved, flops=flops,
+            shape=f"{name} M={m_pad} K={k_pad} N={n_pad} (real {m}x{k}x{n}) density={density}",
+            ok=all(checks.values()), failed=[c for c, v in checks.items() if not v],
+            err=err, tol=tol, bytes=moved, adds=set_bits * n, set_bits=set_bits,
+            geometry="x".join(map(str, geometry)), blocks=blocks,
             skip=1 - int(occ.sum()) / occ.numel(),
-            ms=cuda_ms(torch, lambda: sc.spike_matmul(patches, w2d)),
+            ms=cuda_ms(torch, run), graph_ms=graph_ms(torch, run),
             plain_ms=cuda_ms(torch, lambda: sc.spike_matmul_plain(patches, w2d)),
-            library_ms=cuda_ms(torch, lambda: torch.matmul(patches, w2d)),
-            bound_ms=b_ms, bound_by=b_by))
+            library_ms=cuda_ms(torch, library), library_graph_ms=graph_ms(torch, library),
+            bound_ms=b_ms, bound_by=b_by, tile_flops=tile_flops, tile_bound_ms=t_ms,
+            tile_bound_by=t_by))
     return rows
+
+
+def sweep_gated_geometry(torch, shapes, gen):
+    """Kernel 4's time at every geometry it has that divides each unfused
+    shape, at each density; each result held bit for bit against the plain
+    k-ascending sum. Prints one line per (shape, density)."""
+    from repro_torch.kernels.spike_conv import ops as sc
+    failed = []
+    for density in DENSITIES:
+        for shape in shapes:
+            name, m_pad, k_pad, n_pad = shape[:4]
+            patches, w2d = served_gated_operands(torch, shape, gen, density)
+            event = sc.spike_matmul_event_plain(patches, w2d)
+            times = []
+            for geometry in sc.GATED_GEOMETRIES:
+                if m_pad % geometry[0] or n_pad % geometry[1]:
+                    continue
+                run = lambda: sc._spike_matmul_cuda(patches, w2d, gate=True, geometry=geometry)
+                if not torch.equal(run(), event):
+                    failed.append(f"{name} density={density} {geometry}")
+                times.append(f"{'x'.join(map(str, geometry))} "
+                             f"({sc.gated_blocks(geometry, m_pad, n_pad)} blocks) "
+                             f"{cuda_ms(torch, run):.4f}")
+            chosen = sc.gated_geometry(m_pad, k_pad, n_pad)
+            print(f"  sweep spike_matmul {name} M={m_pad} K={k_pad} N={n_pad} "
+                  f"density={density} (chosen {'x'.join(map(str, chosen))}): ms "
+                  + ", ".join(times), flush=True)
+    return failed
 
 
 def check_lif_step(torch, shapes, gen):
@@ -456,6 +528,8 @@ def check_lif_step(torch, shapes, gen):
             shape=f"{name} n={n}", ok=torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1]),
             bytes=moved, flops=flops, err=(out[0] - ref[0]).abs().max().item(), tol=0.0,
             ms=cuda_ms(torch, lambda: lif.lif_update(u, cur, s, beta=BETA, theta=THETA)),
+            graph_ms=graph_ms(torch, lambda: lif.lif_update(u, cur, s, beta=BETA,
+                                                            theta=THETA)),
             plain_ms=cuda_ms(torch, lambda: lif.lif_update_plain(u, cur, s, beta=BETA,
                                                                 theta=THETA)),
             library_ms=None, bound_ms=b_ms, bound_by=b_by))
@@ -1111,6 +1185,9 @@ def main() -> None:
         failed = sweep_event_geometry(torch, main_path_shapes(vgg9_snn.CIFAR10, SLOTS)[1], gen)
         if failed:
             fail(f"spike_matmul_mapped differs from the k-ascending sum at {failed}")
+        failed = sweep_gated_geometry(torch, unfused_shapes(vgg9_snn.CIFAR10, SLOTS)[0], gen)
+        if failed:
+            fail(f"spike_matmul differs from the k-ascending sum at {failed}")
         print("sweep: every geometry bit-identical to the k-ascending sum")
         return
 
@@ -1123,11 +1200,12 @@ def main() -> None:
     # kernel 1 at density 0.1 goes in the kernels line, as in every
     # earlier run; its denser rows are held and printed beside it
     mapped = {d: check_spike_matmul(torch, mm_shapes, gen, d) for d in DENSITIES}
+    gated = {d: check_spike_matmul_gated(torch, gated_shapes, gen, d) for d in DENSITIES}
     table = {
         "spike_matmul_mapped": mapped[0.1],
         "lif_epilogue_scan": check_lif_epilogue(torch, epi_shapes, cfg.timesteps, gen),
         "dense_conv_lif": check_dense_conv_lif(torch, dense_shape, cfg.timesteps, gen),
-        "spike_matmul": check_spike_matmul_gated(torch, gated_shapes, gen),
+        "spike_matmul": gated[0.1],
         "lif_step": check_lif_step(torch, lif_shapes, gen),
         "int4_matmul": check_int4_matmul(torch, int4_shapes(qwen, LM_SLOTS, LM_MAX_SEQ), gen),
         "flash_attention": check_flash_attention(torch, gen, qwen.n_heads, qwen.hd),
@@ -1135,30 +1213,39 @@ def main() -> None:
     failed = []
     checked = dict(table)
     checked.update({f"spike_matmul_mapped density={d}": mapped[d] for d in DENSITIES[1:]})
+    checked.update({f"spike_matmul density={d}": gated[d] for d in DENSITIES[1:]})
     for kname, rows in checked.items():
         for r in rows:
             lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
             extra = f" skip={r['skip']:.4f}" if "skip" in r else ""
             if "tflops" in r:
-                extra += (f" tflops={r['tflops']:.1f} bound_share={r['bound_share']:.3f}"
-                          f" graph_ms={r['graph_ms']:.4f}"
-                          f" library_graph_ms={r['library_graph_ms']:.4f}")
-            if "event_bound_ms" in r:
+                extra += f" tflops={r['tflops']:.1f} bound_share={r['bound_share']:.3f}"
+            if "graph_ms" in r:
+                extra += f" graph_ms={r['graph_ms']:.4f}"
+            if "library_graph_ms" in r:
+                extra += f" library_graph_ms={r['library_graph_ms']:.4f}"
+            if "tile_bound_ms" in r:
                 extra += (f" blocks={r['blocks']} ({r['geometry']}) set_bits={r['set_bits']} "
-                          f"event_bound_ms={r['event_bound_ms']:.4f} ({r['event_bound_by']})"
-                          f" failed={r['failed']}")
+                          f"tile_bound_ms={r['tile_bound_ms']:.4f} ({r['tile_bound_by']}: "
+                          f"{r['tile_flops']:.0f} flops) failed={r['failed']}")
+            ops = f"{r['adds']:.0f} adds" if "adds" in r else f"{r['flops']:.0f} flops"
             print(f"  {kname} {r['shape']}: ok={r['ok']} err={r['err']:.3e} "
                   f"(tol {r['tol']:.1e}){extra} ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
                   f"library_ms={lib} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}: "
-                  f"{r['bytes']:.0f} bytes, {r['flops']:.0f} flops)")
+                  f"{r['bytes']:.0f} bytes, {ops})")
             if not r["ok"]:
                 failed.append(f"{kname} {r['shape']}")
-    for d in DENSITIES:
-        print(f"  spike_matmul_mapped density={d}: sum over shapes ms="
-              f"{sum(r['ms'] for r in mapped[d]):.4f} library_ms="
-              f"{sum(r['library_ms'] for r in mapped[d]):.4f} bound_ms="
-              f"{sum(r['bound_ms'] for r in mapped[d]):.4f} event_bound_ms="
-              f"{sum(r['event_bound_ms'] for r in mapped[d]):.4f}")
+    for kname, by_density in (("spike_matmul_mapped", mapped), ("spike_matmul", gated)):
+        for d in DENSITIES:
+            rows = by_density[d]
+            graph = (f" graph_ms={sum(r['graph_ms'] for r in rows):.4f}"
+                     f" library_graph_ms={sum(r['library_graph_ms'] for r in rows):.4f}"
+                     if "graph_ms" in rows[0] else "")
+            print(f"  {kname} density={d}: sum over shapes ms={sum(r['ms'] for r in rows):.4f}"
+                  f"{graph} plain_ms={sum(r['plain_ms'] for r in rows):.4f} library_ms="
+                  f"{sum(r['library_ms'] for r in rows):.4f} bound_ms="
+                  f"{sum(r['bound_ms'] for r in rows):.4f} tile_bound_ms="
+                  f"{sum(r['tile_bound_ms'] for r in rows):.4f}")
     print(f"phase 3 kernels: {sum(len(r) for r in checked.values())} shapes, "
           f"{len(failed)} failed")
     if failed:

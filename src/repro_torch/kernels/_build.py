@@ -141,7 +141,10 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 
 def stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    """The current device's current stream as a raw handle: the query
+    PyTorch's own generated kernels make, with no `torch.cuda.Stream`
+    object built per launch."""
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(torch.cuda.current_device()))
 
 
 def launch(name: str, argtypes: Sequence, *args) -> None:

@@ -73,15 +73,15 @@
 // the products do not hide.
 //
 // Link: the tensor maps are encoded on the host by libcuda's
-// `cuTensorMapEncodeTiled`, looked up at first use with dlsym in the
-// libcuda.so.1 that the CUDA runtime has loaded, so the library links
-// against neither libcuda nor a newer runtime entry point.
+// `cuTensorMapEncodeTiled`, looked up with dlsym (kernels/common/csrc/
+// tma.cuh), so the library links against neither libcuda nor a newer
+// runtime entry point.
 
-#include <cuda.h>          // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <dlfcn.h>
 #include <stdint.h>
+
+#include "../../common/csrc/tma.cuh"   // mbarriers, smem_u32, encode_tiled
 
 namespace {
 
@@ -393,32 +393,6 @@ template <int HD, int NC> struct Layout {
   static constexpr int bytes = bar_off + 64 + 1024;      // + slack to align the base
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
-}
-// returns once the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-  } while (!done);
-}
 // box (64 columns, rows, 1 head) at (c0, c1, c2) of a 3-D map into dst
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
                                          int c0, int c1, int c2) {
@@ -721,20 +695,6 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
             __floats2bfloat162_rn(acc[4 * j + 2] / d1, acc[4 * j + 3] / d1);
     }
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
-  }();
-  return fn;
 }
 
 // a 3-D map over [bh, s, hd] bf16 whose box is (64 columns, rows, 1 head),

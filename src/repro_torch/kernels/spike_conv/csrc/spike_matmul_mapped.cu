@@ -41,10 +41,9 @@
 //
 // Sum order, and with it bit identity: every output element is summed in
 // one register, k ascending, from +0. That is the order of the in-kernel-
-// gated kernel (`spike_matmul.cu`), whose fma(1, w, acc) rounds like
-// acc + w and whose fma(0, w, acc) leaves acc as it is, so the two kernels
-// agree bit for bit and the fused pipeline stays bit-identical to the
-// unfused one.
+// gated kernel (`spike_matmul.cu`), which also adds a weight with
+// __fadd_rn only where the spike is set, so the two kernels agree bit for
+// bit and the fused pipeline stays bit-identical to the unfused one.
 //
 // What bounds it on an H100 (measured numbers in PERF.md):
 //   - the adds: one shared-memory read of 4 bytes per add at 128 bytes per

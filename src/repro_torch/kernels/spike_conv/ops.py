@@ -3,8 +3,9 @@
 ``spike_conv2d`` is the pre-fusion baseline (one call per timestep): it
 im2cols the binary spikes, pads the problem to the TPU tile sizes it is
 given and hands it to ``spike_matmul``: on a CUDA tensor the hand kernel in
-``csrc/spike_matmul.cu``, which tests each tile for spikes inside the
-kernel, on a CPU tensor its plain version ``spike_matmul_plain``.
+``csrc/spike_matmul.cu``, which packs the spikes it reads into bit words
+inside the kernel and adds only the weight rows they select (its gate), on
+a CPU tensor its plain version ``spike_matmul_plain``.
 
 ``spike_conv2d_mapped`` im2cols the binary spikes (plain torch, on the
 spikes' device), pads the problem to the plan's tiles and hands it to
@@ -24,7 +25,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -51,10 +52,19 @@ EVENT_STAGES = 3
 EVENT_MAX_SMEM = 225 * 1024      # bytes of shared memory a block takes (227 KB opt-in
                                  # less room for the kernel's static shared memory)
 H100_SMS = 132
-# output tile and k slice of the in-kernel-gated kernel (`spike_matmul.cu`)
-GATED_TILE_M = 64
-GATED_TILE_N = 64
-GATED_TILE_K = 32
+# geometries (rows, cols, rows_per_warp, cols_per_lane) of the in-kernel-
+# gated spike-bit core (`spike_matmul.cu`): a block owns `rows` x `cols`
+# outputs, each consumer warp rows_per_warp rows x 32 * cols_per_lane
+# columns. In this order of preference, from their times at the unfused
+# pipeline's shapes and spike densities 0.1 / 0.33 / 1.0 on an H100
+# (`chip_smoke.py --sweep`, PERF.md): the widest block that fills the card;
+# 8-row blocks of one-row warps where M = 512 leaves no other way to fill
+# it; 64 columns where N % 128 != 0. The k axis goes in 32-deep spike words;
+# M, K and N must be multiples of GATED_M, GATED_WORD_K and GATED_N.
+GATED_GEOMETRIES = ((32, 128, 2, 4), (16, 128, 4, 4), (8, 128, 1, 4), (16, 64, 2, 2))
+GATED_M = 64
+GATED_N = 64
+GATED_WORD_K = 32
 
 
 def reset_launch_counts() -> None:
@@ -96,21 +106,52 @@ def spike_matmul_plain(patches: torch.Tensor, w2d: torch.Tensor, *,
     return patches @ w2d
 
 
-def _spike_matmul_cuda(patches, w2d, *, gate):
+@functools.lru_cache(maxsize=None)
+def gated_geometry(m: int, k: int, n: int, sms: int = H100_SMS,
+                   geometry: Optional[Tuple[int, int, int, int]] = None
+                   ) -> Tuple[int, int, int, int]:
+    """(rows, cols, rows_per_warp, cols_per_lane) of the spike-bit core's
+    blocks for [M, K] x [K, N]: ``geometry`` where given (it must be one of
+    ``GATED_GEOMETRIES`` and divide the problem), else the first of them
+    that divides the problem and puts at least ``sms`` blocks on the card,
+    else the one with the most blocks. Raises on a problem or a geometry
+    the kernel does not take.
+    """
+    if m <= 0 or k <= 0 or n <= 0 or m % GATED_M or k % GATED_WORD_K or n % GATED_N:
+        raise ValueError(
+            f"spike_matmul: unsupported geometry M={m} K={k} N={n} (needs "
+            f"M % {GATED_M} == 0, K % {GATED_WORD_K} == 0, N % {GATED_N} == 0)")
+    fits = [g for g in GATED_GEOMETRIES
+            if m % g[0] == 0 and n % g[1] == 0]
+    if geometry is not None:
+        if geometry not in fits:
+            raise ValueError(f"spike_matmul: geometry {geometry} does not fit M={m} N={n}")
+        return geometry
+    enough = [g for g in fits if gated_blocks(g, m, n) >= sms]
+    return enough[0] if enough else max(fits, key=lambda g: gated_blocks(g, m, n))
+
+
+def gated_blocks(geometry, m: int, n: int) -> int:
+    return (m // geometry[0]) * (n // geometry[1])
+
+
+def _spike_matmul_cuda(patches, w2d, *, gate, geometry=None):
+    """The hand kernel. The patches must be 0/1 spikes: it adds the bare
+    weight wherever a patch is nonzero, so any nonzero value counts as 1.
+    ``geometry`` (one of ``GATED_GEOMETRIES``) overrides
+    `gated_geometry`'s choice."""
     _build.check_cuda_operands("spike_matmul", patches=patches, w2d=w2d)
     m, k = patches.shape
     k2, n = w2d.shape
-    if k != k2 or m % GATED_TILE_M or k % GATED_TILE_K or n % GATED_TILE_N:
-        raise ValueError(
-            f"spike_matmul: unsupported geometry M={m} K={k} K'={k2} N={n} (needs "
-            f"K == K', M % {GATED_TILE_M} == 0, K % {GATED_TILE_K} == 0, "
-            f"N % {GATED_TILE_N} == 0)")
+    if k != k2:
+        raise ValueError(f"spike_matmul: K={k} != K'={k2}")
+    chosen = gated_geometry(m, k, n, _sm_count(patches.device.index), geometry)
     out = torch.empty((m, n), dtype=torch.float32, device=patches.device)
     c_int = ctypes.c_int
     _build.launch(
-        "spike_matmul", [ctypes.c_void_p] * 3 + [c_int] * 4 + [ctypes.c_void_p],
+        "spike_matmul", [ctypes.c_void_p] * 3 + [c_int] * 8 + [ctypes.c_void_p],
         _build.ptr(patches), _build.ptr(w2d), _build.ptr(out),
-        m, k, n, int(gate), _build.stream())
+        m, k, n, int(gate), *chosen, _build.stream())
     return out
 
 
@@ -118,8 +159,10 @@ def spike_matmul(patches: torch.Tensor, w2d: torch.Tensor, *,
                  gate: bool = True) -> torch.Tensor:
     """In-kernel-gated product of padded operands -> out [M, N].
 
-    The patches' device picks the path: CPU -> the plain version, CUDA ->
-    the hand kernel (raises on operands it does not take).
+    The patches must be 0/1 spikes, as the TPU kernel's are: the hand
+    kernel counts any nonzero patch as 1, where the plain version would
+    multiply by it. The patches' device picks the path: CPU -> the plain
+    version, CUDA -> the hand kernel (raises on operands it does not take).
     """
     if _build.is_cpu("spike_matmul", patches):
         return spike_matmul_plain(patches, w2d, gate=gate)

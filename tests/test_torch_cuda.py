@@ -9,7 +9,8 @@ runs on a machine that has only PyTorch:
 Bars: the gated matmuls' occupancy maps exactly equal and currents within
 1e-4 * max(1, max|ref|) (0/1 inputs make every product exact; only the
 order of the fp32 sum differs), and the two gated matmuls bit-identical to
-each other and to the plain k-ascending sum (all three sum k ascending); the LIF kernels bit-identical; the dense
+each other and to the plain k-ascending sum (all three sum k ascending) at
+every block geometry, density and gate setting; the LIF kernels bit-identical; the dense
 core's u within 1e-5 and its spikes equal wherever u is clear of theta; the
 unfused pipeline bit-identical to the fused one; a training step's loss
 within 1e-4 and each gradient's relative L2 difference within 1e-3 of the
@@ -183,10 +184,11 @@ def test_pipeline_matches_cpu(cuda, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("density", [0.1, 0.33, 1.0])
 @pytest.mark.parametrize("m,k,n,gate", [(8192, 640, 128, True), (512, 4608, 640, True),
                                         (512, 2048, 512, False), (256, 128, 128, True)])
-def test_spike_matmul_matches_plain_and_mapped(cuda, m, k, n, gate):
-    patches = _spikes(23, (m, k)).to(cuda)
+def test_spike_matmul_matches_plain_and_mapped(cuda, m, k, n, gate, density):
+    patches = _spikes(23, (m, k), density).to(cuda)
     patches[:64] = 0.0                                       # an all-zero tile row
     patches[:, :32] = 0.0                                    # an all-zero k slice
     w2d = _normal(24, (k, n)).to(cuda)
@@ -199,6 +201,53 @@ def test_spike_matmul_matches_plain_and_mapped(cuda, m, k, n, gate):
     assert out[:64].abs().max().item() == 0.0
     mapped, _, _ = sc_ops.spike_matmul_mapped(patches, w2d, block_m=128, block_k=128)
     assert torch.equal(out, mapped)                  # the same per-element sum order
+    assert torch.equal(out, sc_ops.spike_matmul_event_plain(patches, w2d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gate", [True, False])
+@pytest.mark.parametrize("geometry", sc_ops.GATED_GEOMETRIES)
+def test_spike_matmul_every_geometry(cuda, geometry, gate):
+    """Every block geometry the kernel has, with the gate on and off; K is
+    an odd number of words, so the last ring stage holds one."""
+    patches = _spikes(44, (1024, 1056), 0.2).to(cuda)
+    patches[:64] = 0.0                                       # an all-zero tile row
+    patches[:, 256:288] = 0.0                                # an all-zero k word
+    w2d = _normal(45, (1056, 640), 0.05).to(cuda)
+    out = sc_ops._spike_matmul_cuda(patches, w2d, gate=gate, geometry=geometry)
+    assert torch.equal(out, sc_ops.spike_matmul_event_plain(patches, w2d))
+    assert out[:64].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", sc_ops.GATED_GEOMETRIES)
+def test_spike_matmul_lone_rows(cuda, geometry):
+    """One row of every 8 spikes (so one of each warp's row group at most)
+    and its neighbours are silent; no two rows spike at the same k."""
+    m, k, n = 256, 256, 128
+    patches = torch.zeros((m, k))
+    for i in range(m):
+        if i % 8 == (i // 8) % 8:
+            patches[i, (3 * i) % k] = 1.0
+            patches[i, (3 * i + 131) % k] = 1.0
+    patches = patches.to(cuda)
+    w2d = _normal(46, (k, n)).to(cuda)
+    out = sc_ops._spike_matmul_cuda(patches, w2d, gate=True, geometry=geometry)
+    assert torch.equal(out, sc_ops.spike_matmul_event_plain(patches, w2d))
+    silent = patches.sum(dim=1) == 0
+    assert out[silent].abs().max().item() == 0.0
+    assert out[~silent].abs().min().item() > 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("density", [0.0, 0.05, 0.33, 1.0])
+def test_spike_matmul_gate_off_equals_gate_on(cuda, density):
+    patches = _spikes(47, (512, 2048), density).to(cuda)
+    w2d = _normal(48, (2048, 512)).to(cuda)
+    on = sc_ops.spike_matmul(patches, w2d, gate=True)
+    off = sc_ops.spike_matmul(patches, w2d, gate=False)
+    assert torch.equal(on, off)
+    assert torch.equal(on, sc_ops.spike_matmul_event_plain(patches, w2d))
 
 
 @pytest.mark.cuda

@@ -196,6 +196,55 @@ def test_event_geometry_takes_the_most_blocks_when_none_fills_the_card():
     assert sc_ops.event_geometry(256, 128, 64, 128, 128) == (16, 64)
 
 
+# the unfused pipeline's per-timestep (M_pad, K_pad, N_pad) at 8 images
+UNFUSED_SHAPES = [(8192, 640, 128), (2048, 1024, 256), (2048, 1792, 256),
+                  (512, 2048, 512), (512, 4352, 512), (512, 4608, 640)]
+
+
+@pytest.mark.parametrize("m,k,n", UNFUSED_SHAPES)
+def test_gated_geometry_fills_the_card_at_served_shapes(m, k, n):
+    geometry = sc_ops.gated_geometry(m, k, n)
+    assert m % geometry[0] == 0 and n % geometry[1] == 0
+    assert sc_ops.gated_blocks(geometry, m, n) >= sc_ops.H100_SMS
+
+
+def test_gated_geometry_takes_the_card_test_shape():
+    rows, cols, _, _ = geometry = sc_ops.gated_geometry(256, 128, 128)
+    assert geometry in sc_ops.GATED_GEOMETRIES and 256 % rows == 0 and 128 % cols == 0
+    assert sc_ops.gated_blocks(geometry, 256, 128) == max(
+        sc_ops.gated_blocks(g, 256, 128) for g in sc_ops.GATED_GEOMETRIES
+        if 256 % g[0] == 0 and 128 % g[1] == 0)
+
+
+@pytest.mark.parametrize("m,k,n,geometry,match", [
+    (1000, 640, 128, None, "M % 64"),
+    (1024, 600, 128, None, "K % 32"),
+    (1024, 640, 96, None, "N % 64"),
+    (0, 640, 128, None, "M % 64"),
+    (1024, 640, 64, (32, 128, 2, 4), "does not fit"),       # 128 columns in N = 64
+    (1024, 640, 128, (32, 128, 3, 4), "does not fit"),      # not in the table
+])
+def test_gated_geometry_refuses_what_the_kernel_does_not_take(m, k, n, geometry, match):
+    before = dict(CUDA_LAUNCHES)
+    with pytest.raises(ValueError, match=match):
+        sc_ops.gated_geometry(m, k, n, sc_ops.H100_SMS, geometry)
+    assert CUDA_LAUNCHES == before
+
+
+def test_gated_geometries_are_the_ones_the_kernel_instantiates():
+    """The table in ops.py against the GEOMETRY(...) lines of spike_matmul.cu,
+    each a whole number of consumer warps (at most 16, beside the producer)
+    whose lanes cover the block's columns."""
+    import re
+    src = (_build.PACKAGE_DIR / "kernels/spike_conv/csrc/spike_matmul.cu").read_text()
+    built = [tuple(map(int, g)) for g in
+             re.findall(r"^\s*GEOMETRY\((\d+), (\d+), (\d+), (\d+)\)", src, re.M)]
+    assert built == list(sc_ops.GATED_GEOMETRIES)
+    for rows, cols, r, c in built:
+        assert rows % r == 0 and cols % (32 * c) == 0 and c in (2, 4) and r in (1, 2, 4)
+        assert 1 <= (rows // r) * (cols // (32 * c)) <= 16
+
+
 def test_build_covers_every_counted_kernel():
     assert sorted(p.name for p in _build.sources()) == [
         "dense_conv_lif.cu", "flash_attention.cu", "int4_matmul.cu", "lif_epilogue_scan.cu",
