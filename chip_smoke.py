@@ -8,9 +8,10 @@ Run from the root of a checkout. Phases, one line or block each:
 1. device  — the card's name, and its name and power limit from nvidia-smi;
 2. build   — nvcc builds every kernel from the sources in the checkout
              (with -Xptxas -v: registers and spills per kernel); then
-             `cuobjdump -sass` of the library: each bf16 flash kernel must
-             hold HGMMA (wgmma) and UTMALDG (TMA) instructions, and no fp32
-             one a tensor-core instruction (no TF32);
+             `cuobjdump -sass` of the library: each bf16 flash kernel and
+             each int4 tensor-core kernel must hold HGMMA (wgmma) and
+             UTMALDG (TMA) instructions, no fp32 flash kernel a tensor-core
+             instruction (no TF32), and no int4 tensor-core kernel a spill;
 3. kernels — each hand kernel against its plain PyTorch version on the card,
              at every shape the CIFAR10 serving path (8 slots) and the
              unfused pipeline (8 images) give it, with kernel / plain /
@@ -60,17 +61,29 @@ per-timestep shapes: within 1e-4 of the plain product, bit for bit
 bits, the same two bounds and CUDA-graph device time (`graph_ms`), which the LIF
 kernels and the dense core also print. It also
 holds `int4_matmul` at qwen1.5-4b's projection shapes (decode M = 4,
-prefill M = 512, the LM head, the example's shape) and `flash_attention` at
+prefill M = 512, the LM head, the example's shape) with fp32 x, and with
+bf16 x at the prefill shapes and the LM head: within 1e-4 of the plain
+version, a row's result equal to the M = 1 call's; each row prints the
+path (TMA or ragged), token width, warpgroups, tiles, stages, K's splits,
+blocks, `graph_ms`, the device time of each kernel the call launches, its
+tensor-core bound (fp32 x as three bf16 passes) as `bound_ms` and its share
+of `graph_ms`, and the fp32 CUDA-core bound beside it as `simt_bound_ms`;
+and `flash_attention` at
 20 heads of 128, S = 512 and 2048, fp32 and bf16, with its achieved
 TFLOP/s, the share of its bound, and its and SDPA's device time from CUDA
 graph replays (`graph_ms`: at S = 512 a call is shorter than its enqueue).
 
     python3 chip_smoke.py --sweep
 
-runs phases 1-2, then times `spike_matmul_mapped` at every block geometry
-it has at each served shape and density, and `spike_matmul` at every
-geometry it has at each of the unfused pipeline's shapes and density (each
-result held bit for bit against the k-ascending sum), and stops there.
+runs phases 1-2, then times `int4_matmul` at every geometry it has (token
+width, warpgroups, tiles, stages), in whole and split mode, at the chosen,
+half and twice the chosen number of K's splits, at each qwen shape for fp32
+and bf16 x (each held against the plain version, its bits reported equal
+to or different from the chosen plan's), `spike_matmul_mapped` at every
+block geometry it has at each served shape and density, and `spike_matmul`
+at every geometry it has at each of the unfused pipeline's shapes and
+density (each result held bit for bit against the k-ascending sum), and
+stops there.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero before it. Every per-shape row and serving figure also goes to
@@ -188,11 +201,71 @@ def sass_counts(lib_path, ops):
     return counts
 
 
-def check_flash_sass(lib_path):
+def check_sass(lib_path, ptxas_log):
     """The bf16 flash kernels run on tensor cores through TMA (HGMMA and
-    UTMALDG in their SASS); the fp32 ones on no tensor core (no TF32)."""
+    UTMALDG in their SASS); the fp32 ones on no tensor core (no TF32). Each
+    int4 tensor-core kernel holds HGMMA and UTMALDG and spills nothing."""
     ops = ("HGMMA", "UTMALDG", "HMMA", "LDGSTS")
     counts = sass_counts(lib_path, ops)
+    res = check_flash_sass(counts, ops)
+    res["int4"] = check_int4_sass(counts, ops, ptxas_log)
+    return res
+
+
+def ptxas_report(log):
+    """{kernel function: {"spills": (store bytes, load bytes), "regs": N}}
+    from the `-Xptxas -v` report."""
+    import re
+    report, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            report[fn] = {}
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and fn is not None:
+            report[fn]["spills"] = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            report[fn]["regs"] = int(m.group(1))
+            fn = None
+    return report
+
+
+def check_int4_sass(counts, ops, ptxas_log):
+    """Each int4 tensor-core kernel holds HGMMA and UTMALDG, spills nothing,
+    and, where `setmaxnreg` moves registers (two consumer warpgroups),
+    starts with the block's full count (threads x count = what an SM has),
+    so the consumers' increase always finds its registers."""
+    import re
+    from repro_torch.kernels.int4_matmul import ops as i4
+    tc = {f: c for f, c in counts.items() if "int4_wgmma_kernel" in f}
+    report = ptxas_report(ptxas_log)
+    bad = []
+    for f, c in tc.items():
+        rep = report.get(f, {})
+        geometry = re.search(r"int4_wgmma_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", f)
+        warpgroups = int(geometry.group(2)) if geometry else 0
+        threads = 128 * (warpgroups + 1)
+        if rep.get("spills") != (0, 0) or "regs" not in rep or (
+                warpgroups >= 2 and rep["regs"] != 65536 // threads // 8 * 8):
+            bad.append((f, rep))
+        print(f"  sass {f}: " + " ".join(f"{op}={c[op]}" for op in ops)
+              + f" ptxas={rep}")
+    if len(tc) != 2 * len(i4.INT4_GEOMETRIES):      # each geometry for fp32 and bf16 x
+        fail(f"expected {2 * len(i4.INT4_GEOMETRIES)} int4 tensor-core kernels in the SASS, "
+             f"found {sorted(tc)}")
+    if any(c["HGMMA"] == 0 or c["UTMALDG"] == 0 for c in tc.values()):
+        fail(f"an int4 tensor-core kernel lacks HGMMA or UTMALDG: {tc}")
+    if bad:
+        fail(f"int4 tensor-core kernels that spill, lack a ptxas report or start with fewer "
+             f"registers than setmaxnreg assumes: {bad}")
+    print(f"sass: int4 tensor-core kernels HGMMA {[c['HGMMA'] for c in tc.values()]} UTMALDG "
+          f"{[c['UTMALDG'] for c in tc.values()]}; no spills")
+    return {"kernels": tc, "ptxas": {f: report.get(f) for f in tc}}
+
+
+def check_flash_sass(counts, ops):
     bf16 = {f: c for f, c in counts.items() if "flash_bf16_kernel" in f}
     fp32 = {f: c for f, c in counts.items() if "flash_fp32_kernel" in f}
     for f, c in {**bf16, **fp32}.items():
@@ -546,31 +619,124 @@ def int4_shapes(cfg, slots, prefill):
     return out + [(slots, d, cfg.vocab), (4, d, 256)]
 
 
-def check_int4_matmul(torch, shapes, gen):
+def int4_bounds(m, k, n, x_bytes, passes):
+    """(bytes, tensor-core bound, its cause, fp32 CUDA-core bound, its
+    cause) of one int4 call: x, the packed weights, the scale and the
+    output cross device memory once; the tensor cores form `passes` bf16
+    products per multiply-add (3 for fp32 x split into exact bf16 terms)."""
+    moved = x_bytes * m * k + k * n // 2 + 4 * n + 4 * m * n
+    flops = 2.0 * m * k * n
+    return (moved, flops) + bound(moved, passes * flops, BF16_FLOPS) + bound(moved, flops)
+
+
+INT4_PARTS = {"split_bf16x3": "split", "int4_wgmma": "product", "int4_simt": "simt",
+              "sum_splits": "sum"}
+
+
+def int4_parts_ms(torch, fn, calls=10):
+    """Device ms per call of each kernel one int4 call launches (the fp32
+    split, the product, the sum of K's ranges), from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    parts = {}
+    for e in prof.key_averages():
+        for key, part in INT4_PARTS.items():
+            if key in e.key and e.self_device_time_total > 0:
+                parts[part] = parts.get(part, 0.0) + e.self_device_time_total / 1e3 / calls
+    return parts
+
+
+def check_int4_matmul(torch, shapes, gen, dtype):
+    """Kernel 6 at qwen1.5-4b's shapes for one x dtype: within 1e-4 of the
+    plain version, a row's result equal to the M = 1 call's, the plan's
+    path, token width, splits and blocks, and its bound on the tensor cores
+    (fp32 x as three bf16 passes) beside the fp32 CUDA-core bound."""
     from repro_torch.core.quant import dequantize, quantize_int4
     from repro_torch.kernels.int4_matmul import ops as i4
     rows = []
     for m, k, n in shapes:
         qt = quantize_int4(torch.randn((k, n), device="cuda", generator=gen))
-        x = torch.randn((m, k), device="cuda", generator=gen)
+        x = torch.randn((m, k), device="cuda", generator=gen).to(dtype)
         out = i4.int4_matmul(x, qt.packed, qt.scale)
         ref = i4.int4_matmul_plain(x, qt.packed, qt.scale)
+        row1 = i4.int4_matmul(x[1:2].clone(), qt.packed, qt.scale)
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
         tol = 1e-4 * max(1.0, ref.abs().max().item())
-        w = dequantize(qt)                   # the library's operand: pre-dequantized fp32
-        moved = 4 * m * k + k * n // 2 + 4 * n + 4 * m * n
-        flops = 2.0 * m * k * n
-        b_ms, b_by = bound(moved, flops)
+        plan = i4.int4_plan(m, k, n, dtype,
+                            torch.cuda.get_device_properties(0).multi_processor_count)
+        # the library's operand: the pre-dequantized weights in x's dtype
+        # (for bf16 x, torch.matmul also rounds its output to bf16)
+        w = dequantize(qt).to(dtype)
+        moved, flops, b_ms, b_by, simt_ms, simt_by = int4_bounds(
+            m, k, n, x.element_size(), 3 if dtype == torch.float32 else 1)
+        run = lambda: i4.int4_matmul(x, qt.packed, qt.scale)
+        library = lambda: torch.matmul(x, w)
+        checks = {"tol": err <= tol, "row_independent": torch.equal(row1, out[1:2])}
         rows.append(dict(
-            shape=f"M={m} K={k} N={n}", ok=err <= tol, err=err, tol=tol, bytes=moved,
-            flops=flops,
-            ms=cuda_ms(torch, lambda: i4.int4_matmul(x, qt.packed, qt.scale)),
+            shape=f"M={m} K={k} N={n} {str(dtype).split('.')[1]}", ok=all(checks.values()),
+            failed=[c for c, v in checks.items() if not v], err=err, tol=tol, bytes=moved,
+            flops=flops, path=plan.path, token_width=plan.token_width,
+            warpgroups=plan.warpgroups, tiles=plan.tiles, stages=plan.stages, splits=plan.splits,
+            whole=plan.whole, ctas=plan.ctas,
+            ms=cuda_ms(torch, run), graph_ms=graph_ms(torch, run),
             plain_ms=cuda_ms(torch, lambda: i4.int4_matmul_plain(x, qt.packed, qt.scale)),
-            library_ms=cuda_ms(torch, lambda: torch.matmul(x, w)),
-            bound_ms=b_ms, bound_by=b_by))
+            library_ms=cuda_ms(torch, library), library_graph_ms=graph_ms(torch, library),
+            bound_ms=b_ms, bound_by=b_by, simt_bound_ms=simt_ms, simt_bound_by=simt_by))
+        rows[-1]["bound_share"] = b_ms / rows[-1]["graph_ms"]
+        rows[-1]["parts_ms"] = int4_parts_ms(torch, run)
         del qt, w, x, out, ref
     return rows
+
+
+def sweep_int4_geometry(torch, shapes, gen):
+    """Kernel 6's time (`graph_ms`) at every geometry (token width,
+    warpgroups, tiles, stages) it has, in whole and split mode, at the
+    chosen number of K's splits and at half and twice it, at each qwen shape
+    and x dtype; each result held against the plain version and reported as
+    equal to or different from the chosen plan's bits. Prints one line per
+    (shape, dtype)."""
+    from repro_torch.core.quant import quantize_int4
+    from repro_torch.kernels.int4_matmul import ops as i4
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    failed = []
+    for m, k, n in shapes:
+        qt = quantize_int4(torch.randn((k, n), device="cuda", generator=gen))
+        scale = qt.scale.reshape(-1).float().contiguous()
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((m, k), device="cuda", generator=gen).to(dtype)
+            ref = i4.int4_matmul_plain(x, qt.packed, qt.scale)
+            tol = 1e-4 * max(1.0, ref.abs().max().item())
+            chosen_plan = i4.int4_plan(m, k, n, dtype, sms)
+            chosen = i4.int4_matmul(x, qt.packed, qt.scale)
+            s0, units = chosen_plan.splits, -(-k // i4.UNIT_K)
+            times = []
+            for splits in sorted({s0, max(1, s0 // 2), min(units, 2 * s0)}):
+                for geometry in i4.INT4_GEOMETRIES:
+                    for fill in (1, 10 ** 6):              # whole mode, split mode
+                        plan = i4.int4_plan(m, k, n, dtype, fill, geometry, splits)
+                        if fill > 1 and plan.whole:
+                            continue                       # one range: no split mode
+                        run = lambda: i4._int4_matmul_cuda(x, qt.packed, scale, geometry=geometry,
+                                                           splits=splits, sms=fill)
+                        out = run()
+                        if (out - ref).abs().max().item() > tol:
+                            failed.append(f"M={m} K={k} N={n} {dtype} {plan}")
+                        times.append(f"{geometry} S={splits} "
+                                     f"{'whole' if plan.whole else 'split'} ({plan.ctas} blocks) "
+                                     f"{graph_ms(torch, run):.4f} "
+                                     f"{'=' if torch.equal(out, chosen) else '!='}")
+            print(f"  sweep int4_matmul M={m} K={k} N={n} {str(dtype).split('.')[1]} (chosen "
+                  f"{chosen_plan.geometry} S={s0} {'whole' if chosen_plan.whole else 'split'}, "
+                  f"graph ms {graph_ms(torch, lambda: i4.int4_matmul(x, qt.packed, qt.scale)):.4f}"
+                  f"): graph ms, bits vs chosen: " + ", ".join(times), flush=True)
+        del qt
+    return failed
 
 
 def check_flash_attention(torch, gen, heads=20, hd=128):
@@ -1179,16 +1345,21 @@ def main() -> None:
             print(f"  {line.strip()}")
     print(f"phase 2 build: {len(_build.sources())} sources -> {built['path'].name} "
           f"in {built['seconds']:.1f} s")
-    sass = check_flash_sass(built["path"])
+    sass = check_sass(built["path"], built["log"])
     if "--sweep" in sys.argv[1:]:
         gen = torch.Generator(device="cuda").manual_seed(0)
+        qwen = get_arch("qwen1.5-4b").with_(dtype="float32")
+        failed = sweep_int4_geometry(torch, int4_shapes(qwen, LM_SLOTS, LM_MAX_SEQ), gen)
+        if failed:
+            fail(f"int4_matmul differs from its plain version at {failed}")
         failed = sweep_event_geometry(torch, main_path_shapes(vgg9_snn.CIFAR10, SLOTS)[1], gen)
         if failed:
             fail(f"spike_matmul_mapped differs from the k-ascending sum at {failed}")
         failed = sweep_gated_geometry(torch, unfused_shapes(vgg9_snn.CIFAR10, SLOTS)[0], gen)
         if failed:
             fail(f"spike_matmul differs from the k-ascending sum at {failed}")
-        print("sweep: every geometry bit-identical to the k-ascending sum")
+        print("sweep: every spike-matmul geometry bit-identical to the k-ascending sum; "
+              "every int4 geometry within its bar of the plain version")
         return
 
     # 3. kernels
@@ -1197,6 +1368,10 @@ def main() -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     dense_shape, mm_shapes, epi_shapes = main_path_shapes(cfg, SLOTS)
     gated_shapes, lif_shapes = unfused_shapes(cfg, SLOTS)
+    # kernel 6: fp32 x at qwen's eight shapes goes in the kernels line, as
+    # in every earlier run; bf16 x at the prefill shapes and the LM head is
+    # held and printed beside it
+    int4_qwen = int4_shapes(qwen, LM_SLOTS, LM_MAX_SEQ)
     # kernel 1 at density 0.1 goes in the kernels line, as in every
     # earlier run; its denser rows are held and printed beside it
     mapped = {d: check_spike_matmul(torch, mm_shapes, gen, d) for d in DENSITIES}
@@ -1207,13 +1382,16 @@ def main() -> None:
         "dense_conv_lif": check_dense_conv_lif(torch, dense_shape, cfg.timesteps, gen),
         "spike_matmul": gated[0.1],
         "lif_step": check_lif_step(torch, lif_shapes, gen),
-        "int4_matmul": check_int4_matmul(torch, int4_shapes(qwen, LM_SLOTS, LM_MAX_SEQ), gen),
+        "int4_matmul": check_int4_matmul(torch, int4_qwen, gen, torch.float32),
         "flash_attention": check_flash_attention(torch, gen, qwen.n_heads, qwen.hd),
     }
     failed = []
     checked = dict(table)
     checked.update({f"spike_matmul_mapped density={d}": mapped[d] for d in DENSITIES[1:]})
     checked.update({f"spike_matmul density={d}": gated[d] for d in DENSITIES[1:]})
+    checked["int4_matmul bf16"] = check_int4_matmul(
+        torch, [sh for sh in int4_qwen if sh[0] == LM_MAX_SEQ or sh[2] == qwen.vocab], gen,
+        torch.bfloat16)
     for kname, rows in checked.items():
         for r in rows:
             lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -1224,6 +1402,15 @@ def main() -> None:
                 extra += f" graph_ms={r['graph_ms']:.4f}"
             if "library_graph_ms" in r:
                 extra += f" library_graph_ms={r['library_graph_ms']:.4f}"
+            if "simt_bound_ms" in r:
+                extra += (f" path={r['path']} token_width={r['token_width']} "
+                          f"warpgroups={r['warpgroups']} tiles={r['tiles']} stages={r['stages']} "
+                          f"splits={r['splits']} {'whole' if r['whole'] else 'split'} "
+                          f"ctas={r['ctas']} bound_share={r['bound_share']:.3f} "
+                          f"simt_bound_ms={r['simt_bound_ms']:.4f} ({r['simt_bound_by']}) "
+                          f"device ms by kernel "
+                          + " ".join(f"{k}={v:.4f}" for k, v in r["parts_ms"].items())
+                          + f" failed={r['failed']}")
             if "tile_bound_ms" in r:
                 extra += (f" blocks={r['blocks']} ({r['geometry']}) set_bits={r['set_bits']} "
                           f"tile_bound_ms={r['tile_bound_ms']:.4f} ({r['tile_bound_by']}: "
@@ -1246,6 +1433,14 @@ def main() -> None:
                   f"{sum(r['library_ms'] for r in rows):.4f} bound_ms="
                   f"{sum(r['bound_ms'] for r in rows):.4f} tile_bound_ms="
                   f"{sum(r['tile_bound_ms'] for r in rows):.4f}")
+    for kname in ("int4_matmul", "int4_matmul bf16"):
+        rows = checked[kname]
+        print(f"  {kname}: sum over shapes ms={sum(r['ms'] for r in rows):.4f} graph_ms="
+              f"{sum(r['graph_ms'] for r in rows):.4f} library_ms="
+              f"{sum(r['library_ms'] for r in rows):.4f} library_graph_ms="
+              f"{sum(r['library_graph_ms'] for r in rows):.4f} bound_ms="
+              f"{sum(r['bound_ms'] for r in rows):.4f} simt_bound_ms="
+              f"{sum(r['simt_bound_ms'] for r in rows):.4f}")
     print(f"phase 3 kernels: {sum(len(r) for r in checked.values())} shapes, "
           f"{len(failed)} failed")
     if failed:
@@ -1343,6 +1538,10 @@ def main() -> None:
             "bound_by": "operations" if by_ops * 2 > b_total else "bytes",
             "library_ms": None if any(v is None for v in lib) else sum(lib),
             "shapes": len(rows), "ok": all(r["ok"] for r in rows)})
+        if all("graph_ms" in r for r in rows):
+            kernels[-1]["graph_ms"] = sum(r["graph_ms"] for r in rows)
+        if all("simt_bound_ms" in r for r in rows):
+            kernels[-1]["simt_bound_ms"] = sum(r["simt_bound_ms"] for r in rows)
     out_dir = os.path.join(ROOT, "build")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

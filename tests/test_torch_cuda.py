@@ -15,7 +15,9 @@ core's u within 1e-5 and its spikes equal wherever u is clear of theta; the
 unfused pipeline bit-identical to the fused one; a training step's loss
 within 1e-4 and each gradient's relative L2 difference within 1e-3 of the
 CPU's (cuDNN and the CPU sum in different orders). The int4 matmul within
-1e-4 * max(1, max|ref|) (integer weights, fp32 sums in another order);
+1e-4 * max(1, max|ref|) (integer weights, fp32 sums in another order), a
+row equal to the M = 1 call's, two calls and every geometry and mode at the
+chosen K splits bit-identical;
 flash attention within 5e-5 in fp32 (5e-5 of the largest output where
 each head's V is offset by 64 * head) and within one bf16 step of the
 largest output in bf16, two calls bit-identical; LM logits on the card
@@ -301,9 +303,14 @@ def test_training_grads_match_cpu(cuda, name):
             assert diff <= 1e-3 * max(g.norm().item(), 1e-12), (layer, k)
 
 
+# qwen1.5-4b's projections at decode (4 slots) and prefill (512) widths, the
+# LM head and serve_lm_w4's shape, then ragged shapes
+QWEN_INT4 = [(4, 2560, 2560), (512, 2560, 2560), (4, 2560, 6912), (512, 2560, 6912),
+             (4, 6912, 2560), (512, 6912, 2560), (4, 2560, 151936), (4, 2560, 256)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", [(4, 2560, 6912), (512, 6912, 2560), (17, 96, 130),
-                                   (5, 33, 18)])
+@pytest.mark.parametrize("m,k,n", QWEN_INT4 + [(17, 96, 130), (5, 33, 18)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_int4_matmul_matches_plain(cuda, m, k, n, dtype):
     qt = quantize_int4(_normal(29, (k, n)).to(cuda))
@@ -318,6 +325,53 @@ def test_int4_matmul_matches_plain(cuda, m, k, n, dtype):
     # copied: the wrappers take 16-byte aligned operands, and a row view
     # of a [5, 33] tensor starts 132 bytes in)
     assert torch.equal(int4_ops.int4_matmul(x[1:2].clone(), qt.packed, qt.scale), out[1:2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(4, 2560, 256), (4, 6912, 2560), (512, 2560, 2560)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int4_matmul_calls_are_bit_identical(cuda, m, k, n, dtype):
+    """Split mode (decode widths) and whole mode (prefill) sum K's ranges in
+    one fixed order, with no atomics."""
+    qt = quantize_int4(_normal(32, (k, n)).to(cuda))
+    x = _normal(33, (m, k)).to(cuda).to(dtype)
+    first = int4_ops.int4_matmul(x, qt.packed, qt.scale)
+    assert torch.equal(int4_ops.int4_matmul(x, qt.packed, qt.scale), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(7, 67, 50), (9, 67, 96), (3, 1, 64), (600, 68, 6912)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int4_matmul_ragged_shapes(cuda, m, k, n, dtype):
+    """K odd or not a multiple of 8 or 64, N % 32 != 0 or not a multiple of
+    64, tiny K, on whichever path `int4_plan` gives (fp32 x with N % 32 == 0
+    takes the tensor cores, its planes' rows padded)."""
+    qt = quantize_int4(_normal(34, (k, n)).to(cuda))
+    x = _normal(35, (m, k)).to(cuda).to(dtype)
+    out = int4_ops.int4_matmul(x, qt.packed, qt.scale)
+    ref = int4_ops.int4_matmul_plain(x, qt.packed, qt.scale)
+    assert (out - ref).abs().max().item() <= 1e-4 * max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", int4_ops.INT4_GEOMETRIES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int4_matmul_every_geometry(cuda, geometry, dtype):
+    """Each tensor-core kernel, in split and in whole mode, within the bar of
+    the plain version and bit for bit the picker's choice (the ranges of K,
+    not the geometry or the mode, fix the sum's order)."""
+    m, k, n = 20, 1000, 320
+    qt = quantize_int4(_normal(36, (k, n)).to(cuda))
+    x = _normal(37, (m, k)).to(cuda).to(dtype)
+    chosen = int4_ops.int4_matmul(x, qt.packed, qt.scale)
+    ref = int4_ops.int4_matmul_plain(x, qt.packed, qt.scale)
+    for sms in (1, 10 ** 6):                 # whole mode, then split mode
+        plan = int4_ops.int4_plan(m, k, n, dtype, sms, geometry)
+        assert plan.whole == (sms == 1)
+        out = int4_ops._int4_matmul_cuda(x, qt.packed, qt.scale.reshape(-1).float(),
+                                         geometry=geometry, sms=sms)
+        assert (out - ref).abs().max().item() <= 1e-4 * max(1.0, ref.abs().max().item())
+        assert torch.equal(out, chosen), (geometry, plan)
 
 
 def _flash_bar(ref, dtype):

@@ -11,13 +11,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from repro.kernels.dense_conv_lif import ops as jax_dense
 from repro.kernels.lif_step.ops import lif_epilogue as jax_lif_epilogue
 from repro.kernels.spike_conv import ops as jax_sc
 from repro.kernels.spike_conv.ref import im2col as jax_im2col
 from repro_torch.kernels import CUDA_LAUNCHES, _build
+from repro_torch.core.quant import unpack_int4
 from repro_torch.kernels.dense_conv_lif import ops as dense_ops
+from repro_torch.kernels.int4_matmul import ops as int4_ops
 from repro_torch.kernels.lif_step import ops as lif_ops
 from repro_torch.kernels.spike_conv import ops as sc_ops
 from repro_torch.kernels.spike_conv.ref import im2col
@@ -243,6 +246,149 @@ def test_gated_geometries_are_the_ones_the_kernel_instantiates():
     for rows, cols, r, c in built:
         assert rows % r == 0 and cols % (32 * c) == 0 and c in (2, 4) and r in (1, 2, 4)
         assert 1 <= (rows // r) * (cols // (32 * c)) <= 16
+
+
+# ---------------------------------------------------------------------------
+# int4_matmul: the plain mirrors of the kernel's conversions, and its picker
+# ---------------------------------------------------------------------------
+
+_NORMAL_F32 = st.floats(min_value=2.0 ** -100, max_value=2.0 ** 100, width=32)
+_F32 = st.one_of(_NORMAL_F32, _NORMAL_F32.map(lambda v: -v), st.sampled_from([0.0, -0.0]),
+                 st.integers(-100, 100).map(lambda e: float(2.0 ** e)))
+
+
+@settings(max_examples=60, deadline=None)
+@given(st.lists(_F32, min_size=1, max_size=64))
+def test_split_bf16x3_is_exact(values):
+    """hi + mid + lo == x bit for bit over normal fp32 values (summed in
+    fp64, and in fp32 in the kernel's order), and each term's product with
+    every int4 value -8..7 is exact in fp32."""
+    x = torch.tensor(values, dtype=torch.float32)
+    hi, mid, lo = int4_ops.split_bf16x3_plain(x)
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    assert torch.equal(hi.double() + mid.double() + lo.double(), x.double())
+    assert torch.equal((hi.float() + mid.float()) + lo.float(), x)
+    for term in (hi, mid, lo):
+        for v in range(-8, 8):
+            assert torch.equal((term.float() * v).double(), term.double() * v)
+
+
+def test_split_bf16x3_terms_shrink():
+    x = torch.from_numpy(_normal(40, (4096,)))
+    hi, mid, lo = int4_ops.split_bf16x3_plain(x)
+    assert torch.equal(hi, x.bfloat16())
+    assert bool(((mid.float().abs() <= hi.float().abs() * 2.0 ** -8)).all())
+    assert bool(((lo.float().abs() <= mid.float().abs() * 2.0 ** -8)).all())
+
+
+def test_nibble_conversion_gives_every_signed_value():
+    """0x4300 | (nibble ^ 8) - 136 in bf16, for all 16 nibbles, and for both
+    nibbles of all 256 bytes against `unpack_int4`."""
+    vals = int4_ops.nibble_bf16_plain(torch.arange(16))
+    assert vals.dtype == torch.bfloat16
+    assert vals.float().tolist() == list(range(8)) + list(range(-8, 0))
+    packed = torch.arange(-128, 128, dtype=torch.int32).to(torch.int8).reshape(1, 256)
+    byte = packed.to(torch.int32) & 0xFF
+    conv = torch.stack([int4_ops.nibble_bf16_plain(byte & 0xF),
+                        int4_ops.nibble_bf16_plain(byte >> 4)], -1).reshape(1, 512)
+    assert torch.equal(conv.float(), unpack_int4(packed, (1, 512)).float())
+
+
+QWEN_INT4 = [(4, 2560, 2560), (512, 2560, 2560), (4, 2560, 6912), (512, 2560, 6912),
+             (4, 6912, 2560), (512, 6912, 2560), (4, 2560, 151936), (4, 2560, 256)]
+
+
+@pytest.mark.parametrize("m,k,n", QWEN_INT4)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int4_plan_fills_the_card_at_qwen_shapes(m, k, n, dtype):
+    """A consumer warpgroup for every SM (a block of two takes an SM alone)."""
+    plan = int4_ops.int4_plan(m, k, n, dtype)
+    assert plan.path == "tma" and plan.ctas * plan.warpgroups >= int4_ops.H100_SMS
+    assert plan.geometry in int4_ops.INT4_GEOMETRIES
+    assert plan.splits == int4_ops.int4_splits(k, n)
+
+
+@pytest.mark.parametrize("k,n", sorted({(k, n) for _, k, n in QWEN_INT4} | {(96, 160), (8, 32)}))
+def test_int4_splits_depend_on_k_and_n_alone(k, n):
+    """The ranges of K, and so each row's sum, are the same at every M."""
+    for dtype in (torch.float32, torch.bfloat16):
+        plans = [int4_ops.int4_plan(m, k, n, dtype, sms) for m in (1, 4, 17, 512)
+                 for sms in (1, 132, 10 ** 6)]
+        assert {p.splits for p in plans} == {int4_ops.int4_splits(k, n)}
+        assert 1 <= plans[0].splits <= -(-k // int4_ops.UNIT_K)
+
+
+@pytest.mark.parametrize("m,k,n,dtype,path", [
+    (17, 96, 130, torch.float32, "ragged"), (17, 96, 130, torch.bfloat16, "ragged"),
+    (5, 33, 18, torch.float32, "ragged"), (5, 33, 18, torch.bfloat16, "ragged"),
+    (9, 68, 96, torch.float32, "tma"), (9, 68, 96, torch.bfloat16, "ragged"),
+    (9, 67, 96, torch.float32, "tma"), (9, 72, 96, torch.bfloat16, "tma"),
+    (7, 67, 50, torch.float32, "ragged"), (3, 0, 64, torch.float32, "ragged"),
+    (4, 2560, 256, torch.bfloat16, "tma"), (4, 2564, 256, torch.bfloat16, "ragged")])
+def test_int4_plan_takes_tma_only_where_it_can(m, k, n, dtype, path):
+    """16-byte row strides: N % 32 for packed, K % 8 for bf16 x (fp32 x's
+    planes are padded); ragged shapes have no geometry to override."""
+    plan = int4_ops.int4_plan(m, k, n, dtype)
+    assert plan.path == path
+    if path == "ragged":
+        assert plan.scratch_bytes == 0 and plan.ctas == -(-n // 256) * -(-m // 4)
+        with pytest.raises(ValueError, match="ragged path"):
+            int4_ops.int4_plan(m, k, n, dtype, geometry=int4_ops.INT4_GEOMETRIES[0])
+
+
+@pytest.mark.parametrize("m,k,n", QWEN_INT4 + [(9, 68, 96), (17, 2560, 2564), (17, 2564, 2560)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int4_plan_scratch_bytes(m, k, n, dtype):
+    """fp32 x's three bf16 planes, rows padded to 8; split mode's partial
+    sums, one [M, N] fp32 per range; nothing else."""
+    plan = int4_ops.int4_plan(m, k, n, dtype)
+    if plan.path == "ragged":
+        assert plan.scratch_bytes == 0
+        return
+    assert plan.planes_bytes == (0 if dtype == torch.bfloat16 else 3 * m * (-(-k // 8) * 8) * 2)
+    assert plan.partial_bytes == (0 if plan.whole else 4 * plan.splits * m * n)
+    assert plan.whole or plan.splits > 1
+
+
+def test_int4_plan_modes():
+    # decode width: four ranges of K, one block each, summed by a second pass
+    plan = int4_ops.int4_plan(4, 2560, 2560, torch.float32)
+    assert (plan.splits, plan.whole, plan.partial_bytes) == (4, False, 4 * 4 * 4 * 2560)
+    assert plan.planes_bytes == 3 * 4 * 2560 * 2
+    # prefill width: every block walks the four ranges, no partial sums
+    plan = int4_ops.int4_plan(512, 2560, 2560, torch.float32)
+    assert (plan.token_width, plan.whole, plan.partial_bytes) == (128, True, 0)
+    # the LM head: one range, no partial sums
+    plan = int4_ops.int4_plan(4, 2560, 151936, torch.float32)
+    assert (plan.splits, plan.whole, plan.partial_bytes) == (1, True, 0)
+    # a card of one SM: every block walks every range
+    assert int4_ops.int4_plan(512, 2560, 2560, torch.bfloat16, sms=1).whole
+    # a card too large to fill: the most blocks, a block per range
+    plan = int4_ops.int4_plan(4, 2560, 2560, torch.bfloat16, sms=10 ** 6)
+    assert not plan.whole and plan.ctas == max(
+        int4_ops.int4_plan(4, 2560, 2560, torch.bfloat16, 10 ** 6, g).ctas
+        for g in int4_ops.DECODE_GEOMETRIES)
+
+
+def test_int4_plan_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="no kernel for geometry"):
+        int4_ops.int4_plan(4, 2560, 2560, torch.float32, geometry=(16, 2, 1, 4))
+    with pytest.raises(ValueError, match="splits of K"):
+        int4_ops.int4_plan(4, 128, 2560, torch.float32, splits=3)
+
+
+def test_int4_geometries_are_the_ones_the_kernel_instantiates():
+    """The table in ops.py against the GEOMETRY(...) lines of int4_matmul.cu;
+    the picker's preferences are among them."""
+    import re
+    src = (_build.PACKAGE_DIR / "kernels/int4_matmul/csrc/int4_matmul.cu").read_text()
+    built = [tuple(map(int, g)) for g in
+             re.findall(r"^\s*GEOMETRY\((\d+), (\d+), (\d+), (\d+)\)", src, re.M)]
+    assert built == list(int4_ops.INT4_GEOMETRIES)
+    assert set(int4_ops.DECODE_GEOMETRIES + int4_ops.PREFILL_GEOMETRIES) <= set(built)
+    for tn, c, t, stages in built:
+        assert tn in (8, 64, 128) and c in (1, 2) and t in (1, 2) and stages >= 2
+        assert 32 * c * t in (32, 64, 128)          # a packed row is one swizzle span
 
 
 def test_build_covers_every_counted_kernel():

@@ -150,6 +150,19 @@ def test_w4a16_linear_matches_reference(m, k, n):
                                np.asarray(jax_int4_ref(jnp.asarray(x), jqt)), rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.parametrize("m,k,n", [(4, 64, 32), (17, 96, 130), (128, 512, 256)])
+def test_w4a16_linear_bf16_matches_reference(m, k, n):
+    """bf16 x: the JAX kernel unpacks to bf16 and dots with fp32 sums; the
+    port's plain path takes the same bf16 values in fp32."""
+    x, w = _normal(6, (m, k)), _normal(7, (k, n))
+    jqt = jax_quant.quantize_int4(jnp.asarray(w), axis=-1)
+    ref = np.asarray(jax_w4a16(jnp.asarray(x).astype(jnp.bfloat16), jqt, interpret=True))
+    qt = quant.quantize_int4(torch.from_numpy(w), axis=-1)
+    out = int4_ops.w4a16_linear(torch.from_numpy(x).bfloat16(), qt)
+    assert out.dtype == torch.float32 and ref.dtype == np.float32
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-4, atol=1e-3)
+
+
 def test_w4a16_linear_leading_dims_and_bf16():
     x = torch.from_numpy(_normal(4, (2, 3, 64)))
     qt = quant.quantize_int4(torch.from_numpy(_normal(5, (64, 48))))
