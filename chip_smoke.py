@@ -12,6 +12,9 @@ Run from the root of a checkout. Phases, one line or block each:
              each int4 tensor-core kernel must hold HGMMA (wgmma) and
              UTMALDG (TMA) instructions, no fp32 flash kernel a tensor-core
              instruction (no TF32), and no int4 tensor-core kernel a spill;
+             each float4 LIF-epilogue kernel and 4-channel dense-core
+             kernel must hold 128-bit global loads and stores
+             (LDG.E*.128, STG.E*.128) and spill nothing;
 3. kernels — each hand kernel against its plain PyTorch version on the card,
              at every shape the CIFAR10 serving path (8 slots) and the
              unfused pipeline (8 images) give it, with kernel / plain /
@@ -20,7 +23,8 @@ Run from the root of a checkout. Phases, one line or block each:
 4. serve   — spiking VGG9 at full CIFAR10 width, fp32 and int4, served by
              EngineCore + SNNRunner on the card: per-request checks, launch
              counts per engine step, and the same requests on the CPU's
-             plain path as the reference;
+             plain path as the reference; a profile of one engine run
+             with the device ms per step of each of the seven hand kernels;
 5. unfused — the pre-fusion pipeline (T in-kernel-gated spike_matmul +
              lif_step launches per layer) at full CIFAR10 width, fp32 and
              int4, on 8 mixed images: bit-identical to the fused pipeline on
@@ -59,7 +63,11 @@ per-timestep shapes: within 1e-4 of the plain product, bit for bit
 `spike_matmul_mapped` and the k-ascending sum, an all-zero tile row exactly
 0, at least one block per SM; each row prints its geometry, blocks, set
 bits, the same two bounds and CUDA-graph device time (`graph_ms`), which the LIF
-kernels and the dense core also print. It also
+kernels and the dense core also print, with their launch geometry and block
+count; the dense core is also held bit for bit against its ordered plain
+version (k ascending, separate roundings), and a `launch floor` line gives
+the `graph_ms` of the LIF epilogue on a [2, 1, 8] operand (one graph launch
+with next to no work). It also
 holds `int4_matmul` at qwen1.5-4b's projection shapes (decode M = 4,
 prefill M = 512, the LM head, the example's shape) with fp32 x, and with
 bf16 x at the prefill shapes and the LM head: within 1e-4 of the plain
@@ -179,7 +187,8 @@ def graph_ms(torch, fn, calls=20, replays=5) -> float:
 # ---------------------------------------------------------------------------
 
 def sass_counts(lib_path, ops):
-    """{kernel function: {op: instructions}} from `cuobjdump -sass`."""
+    """{kernel function: {op: instructions}} from `cuobjdump -sass`. ``ops``
+    names opcodes, or maps a name to a regex for the instructions it counts."""
     import re
     import shutil
     from repro_torch.kernels import _build
@@ -188,27 +197,36 @@ def sass_counts(lib_path, ops):
     out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True)
     if out.returncode != 0:
         fail(f"cuobjdump -sass failed: {out.stderr.strip()[-500:]}")
+    patterns = ops if isinstance(ops, dict) else {op: rf"\b{op}\b" for op in ops}
     counts, fn = {}, None
     for line in out.stdout.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            counts[fn] = dict.fromkeys(ops, 0)
+            counts[fn] = dict.fromkeys(patterns, 0)
         elif fn is not None:
-            for op in ops:
-                if re.search(rf"\b{op}\b", line):
+            for op, pattern in patterns.items():
+                if re.search(pattern, line):
                     counts[fn][op] += 1
     return counts
+
+
+# 128-bit global loads and stores, any suffix (LDG.E.128, LDG.E.EF.128,
+# STG.E.EF.128, ...)
+WIDE_ACCESS = {"LDG128": r"\bLDG\.E\S*\.128\b", "STG128": r"\bSTG\.E\S*\.128\b"}
 
 
 def check_sass(lib_path, ptxas_log):
     """The bf16 flash kernels run on tensor cores through TMA (HGMMA and
     UTMALDG in their SASS); the fp32 ones on no tensor core (no TF32). Each
-    int4 tensor-core kernel holds HGMMA and UTMALDG and spills nothing."""
+    int4 tensor-core kernel holds HGMMA and UTMALDG and spills nothing. The
+    vector paths of the LIF epilogue and the dense core move 16 bytes per
+    global load and store, and spill nothing."""
     ops = ("HGMMA", "UTMALDG", "HMMA", "LDGSTS")
-    counts = sass_counts(lib_path, ops)
+    counts = sass_counts(lib_path, {**{op: rf"\b{op}\b" for op in ops}, **WIDE_ACCESS})
     res = check_flash_sass(counts, ops)
     res["int4"] = check_int4_sass(counts, ops, ptxas_log)
+    res["lif_dense"] = check_wide_sass(counts, ptxas_log)
     return res
 
 
@@ -263,6 +281,33 @@ def check_int4_sass(counts, ops, ptxas_log):
     print(f"sass: int4 tensor-core kernels HGMMA {[c['HGMMA'] for c in tc.values()]} UTMALDG "
           f"{[c['UTMALDG'] for c in tc.values()]}; no spills")
     return {"kernels": tc, "ptxas": {f: report.get(f) for f in tc}}
+
+
+def check_wide_sass(counts, ptxas_log):
+    """Each float4 instance of `lif_epilogue_kernel` (lif_epilogue_scan.cu)
+    and each 4-channel instance of `dense_conv_lif_kernel` holds 128-bit
+    global loads and stores and spills nothing."""
+    import re
+    report = ptxas_report(ptxas_log)
+    vector = {f: c for f, c in counts.items()
+              if "lif_epilogue_kernelI6float4" in f
+              or re.search(r"dense_conv_lif_kernelILi\d+ELi\d+ELi4E", f)}
+    bad = []
+    for f, c in vector.items():
+        rep = report.get(f, {})
+        if c["LDG128"] == 0 or c["STG128"] == 0 or rep.get("spills") != (0, 0):
+            bad.append((f, c, rep))
+        print(f"  sass {f}: LDG128={c['LDG128']} STG128={c['STG128']} ptxas={rep}")
+    epilogue = sum("lif_epilogue" in f for f in vector)
+    if epilogue == 0 or epilogue == len(vector):
+        fail(f"expected float4 lif_epilogue and dense_conv_lif kernels in the SASS, found "
+             f"{sorted(vector)}")
+    if bad:
+        fail(f"LIF/dense vector kernels without 128-bit global loads or stores, or that "
+             f"spill: {bad}")
+    print(f"sass: {epilogue} float4 lif_epilogue and {len(vector) - epilogue} 4-channel "
+          f"dense_conv_lif kernels with 128-bit global loads and stores; no spills")
+    return {f: {"sass": c, "ptxas": report.get(f)} for f, c in vector.items()}
 
 
 def check_flash_sass(counts, ops):
@@ -424,8 +469,10 @@ def check_lif_epilogue(torch, shapes, steps, gen):
         torch.cuda.synchronize()
         moved, flops = 4 * (2 * steps * r * n + n), 5.0 * steps * r * n
         b_ms, b_by = bound(moved, flops)
+        vector, blocks = lif.epilogue_geometry(r, n, steps)
         rows.append(dict(
             shape=f"{name} T={steps} R={r} N={n}", ok=torch.equal(out, ref),
+            launch=f"{'float4' if vector else 'float'} per thread, {blocks} blocks",
             bytes=moved, flops=flops,
             err=(out - ref).abs().max().item(), tol=0.0,
             ms=cuda_ms(torch, lambda: lif.lif_epilogue_scan(cur, bias, beta=BETA,
@@ -448,9 +495,12 @@ def check_dense_conv_lif(torch, shape, steps, gen):
     s, u = dense.dense_conv_lif(patches, w2d, bias, num_steps=steps, beta=BETA, theta=THETA)
     rs, ru = dense.dense_conv_lif_plain(patches, w2d, bias, num_steps=steps,
                                         beta=BETA, theta=THETA)
+    os_, ou = dense.dense_conv_lif_ordered_plain(patches, w2d, bias, num_steps=steps,
+                                                 beta=BETA, theta=THETA)
     torch.cuda.synchronize()
     err = (u - ru).abs().max().item()
-    ok = err <= 1e-5
+    ordered_bits = torch.equal(s, os_) and torch.equal(u, ou)   # the kernel's own sum order
+    ok = err <= 1e-5 and ordered_bits
     for t in range(steps):                # spikes agree wherever u_t is clear of theta
         _, u_t = dense.dense_conv_lif_plain(patches, w2d, bias, num_steps=t + 1,
                                             beta=BETA, theta=THETA)
@@ -462,14 +512,28 @@ def check_dense_conv_lif(torch, shape, steps, gen):
     run = lambda: dense.dense_conv_lif(patches, w2d, bias, num_steps=steps, beta=BETA,
                                        theta=THETA)
     library = lambda: torch.matmul(patches, w2d)
+    rows_, per, threads, blocks = dense.dense_geometry(m, k, n)
     return [dict(
         shape=f"conv0 M={m} K={k} N={n} T={steps}", ok=ok, err=err, tol=1e-5,
+        ordered_bits=ordered_bits,
+        launch=(f"{rows_}x{n} per block, {per} rows x {4 if n % 4 == 0 else 1} channels per "
+                f"thread, {threads} threads, {blocks} blocks"),
         bytes=moved, flops=flops,
         ms=cuda_ms(torch, run), graph_ms=graph_ms(torch, run),
         plain_ms=cuda_ms(torch, lambda: dense.dense_conv_lif_plain(
             patches, w2d, bias, num_steps=steps, beta=BETA, theta=THETA)),
         library_ms=cuda_ms(torch, library), library_graph_ms=graph_ms(torch, library),
         bound_ms=b_ms, bound_by=b_by)]
+
+
+def launch_floor_ms(torch) -> float:
+    """`graph_ms` of kernel 2 on a [2, 1, 8] operand: what one launch of a
+    hand kernel costs inside a CUDA graph with next to no work, the floor
+    under the FC layers' epilogues."""
+    from repro_torch.kernels.lif_step import ops as lif
+    cur = torch.ones((2, 1, 8), device="cuda")
+    bias = torch.zeros((8,), device="cuda")
+    return graph_ms(torch, lambda: lif.lif_epilogue_scan(cur, bias, beta=BETA, theta=THETA))
 
 
 def unfused_shapes(cfg, batch):
@@ -909,8 +973,27 @@ def profile_serving(torch, name, cfg, params_cpu, step_ms):
           f"{100 - 100 * busy_ms / step_ms:.1f}%)")
     print(f"profile {name}: top device ms/step (launches/step): "
           + ", ".join(f"{k[:40]} {ms:.3f} ({n})" for k, ms, n in top[:10]))
+    import re
+    hand = {}
+    for kname, functions in hand_kernel_functions().items():
+        found = [e for e in kernels if re.search(rf"\b({'|'.join(functions)})\b", e.key)]
+        hand[kname] = (sum(e.self_device_time_total for e in found) / 1e3 / steps,
+                       sum(e.count for e in found) / steps)
+    print(f"profile {name}: hand kernels device ms/step (launches/step): "
+          + ", ".join(f"{k} {ms:.4f} ({n:g})" for k, (ms, n) in hand.items()))
     return {"step_ms": step_ms, "forward_ms": forward_ms, "busy_ms_per_step": busy_ms,
-            "top": top[:16]}
+            "top": top[:16], "hand_kernels": hand}
+
+
+def hand_kernel_functions():
+    """{hand kernel: the __global__ functions of its source}, read off
+    ``kernels/*/csrc/<kernel>.cu``, to find its launches in a profile."""
+    import re
+    from repro_torch.kernels import CUDA_LAUNCHES, _build
+    sources = {p.stem: p for p in _build.sources()}
+    return {name: re.findall(r"__global__\s+void\s+(?:__launch_bounds__\((?:[^()]|\([^()]*\))*\)"
+                             r"\s*)?(\w+)\s*\(", sources[name].read_text())
+            for name in CUDA_LAUNCHES}
 
 
 # ---------------------------------------------------------------------------
@@ -1402,6 +1485,10 @@ def main() -> None:
                 extra += f" graph_ms={r['graph_ms']:.4f}"
             if "library_graph_ms" in r:
                 extra += f" library_graph_ms={r['library_graph_ms']:.4f}"
+            if "launch" in r:
+                extra += f" launch=({r['launch']})"
+            if "ordered_bits" in r:
+                extra += f" ordered_bits={r['ordered_bits']}"
             if "simt_bound_ms" in r:
                 extra += (f" path={r['path']} token_width={r['token_width']} "
                           f"warpgroups={r['warpgroups']} tiles={r['tiles']} stages={r['stages']} "
@@ -1441,6 +1528,8 @@ def main() -> None:
               f"{sum(r['library_graph_ms'] for r in rows):.4f} bound_ms="
               f"{sum(r['bound_ms'] for r in rows):.4f} simt_bound_ms="
               f"{sum(r['simt_bound_ms'] for r in rows):.4f}")
+    floor_ms = launch_floor_ms(torch)
+    print(f"  launch floor: lif_epilogue_scan T=2 R=1 N=8 graph_ms={floor_ms:.4f}")
     print(f"phase 3 kernels: {sum(len(r) for r in checked.values())} shapes, "
           f"{len(failed)} failed")
     if failed:
@@ -1546,6 +1635,7 @@ def main() -> None:
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"device": kind, "nvidia_smi": smi_line, "sass": sass, "kernels": checked,
+                   "launch_floor_ms": floor_ms,
                    "serve": served, "unfused": unfused, "train": trained, "lm": lm}, f,
                   indent=1,
                   default=str)

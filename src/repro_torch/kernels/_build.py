@@ -15,6 +15,7 @@ only then counts the launch in `CUDA_LAUNCHES`.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -31,6 +32,10 @@ REPO_ROOT = PACKAGE_DIR.parent.parent
 BUILD_ROOT = REPO_ROOT / "build" / "repro_torch"
 LIB_NAME = "librepro_torch_kernels.so"
 NVCC_FALLBACK = "/usr/local/cuda/bin/nvcc"      # where the CUDA toolkit puts it
+
+#: streaming multiprocessors of an H100 SXM: the block count the launch
+#: pickers aim for when they are not given the card's own (`sm_count`)
+H100_SMS = 132
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = ARCH_FLAGS + ["-O3", "-std=c++17", "-Xcompiler", "-fPIC"]
@@ -136,15 +141,23 @@ def library() -> ctypes.CDLL:
     return _LIB
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t: torch.Tensor) -> int:
+    """A tensor's device address, for a ``ctypes.c_void_p`` argument (ctypes
+    converts the int; no pointer object is built per launch)."""
+    return t.data_ptr()
 
 
-def stream() -> ctypes.c_void_p:
+def stream() -> int:
     """The current device's current stream as a raw handle: the query
     PyTorch's own generated kernels make, with no `torch.cuda.Stream`
     object built per launch."""
-    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(torch.cuda.current_device()))
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index) -> int:
+    """Streaming multiprocessors of a CUDA device, read once per device."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def launch(name: str, argtypes: Sequence, *args) -> None:
@@ -165,6 +178,9 @@ def launch(name: str, argtypes: Sequence, *args) -> None:
     CUDA_LAUNCHES[name] += 1
 
 
+_FLOAT32 = (torch.float32,)
+
+
 def check_cuda_operands(name: str, dtypes: Optional[Dict[str, Tuple[torch.dtype, ...]]] = None,
                         **tensors: torch.Tensor) -> None:
     """Raise unless every operand has a dtype its kernel takes and is a
@@ -177,15 +193,17 @@ def check_cuda_operands(name: str, dtypes: Optional[Dict[str, Tuple[torch.dtype,
     """
     dtypes = dtypes or {}
     for arg, t in tensors.items():
-        allowed = dtypes.get(arg, (torch.float32,))
+        allowed = dtypes.get(arg, _FLOAT32)
         if t.dtype not in allowed:
             raise TypeError(f"{name}: {arg} must be one of {allowed}, got {t.dtype}")
-    devices = {t.device for t in tensors.values()}
-    if len(devices) != 1:
-        raise ValueError(f"{name}: operands on several devices {devices}")
+    # cheap tensor queries; a `torch.device` is built only for a message
+    index = next(iter(tensors.values())).get_device()
     for arg, t in tensors.items():
-        if t.device.type != "cuda":
+        if not t.is_cuda:
             raise ValueError(f"{name}: {arg} is on {t.device}, not a CUDA device")
+        if t.get_device() != index:
+            devices = {u.device for u in tensors.values()}
+            raise ValueError(f"{name}: operands on several devices {devices}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
         if t.data_ptr() % 16:
@@ -195,8 +213,8 @@ def check_cuda_operands(name: str, dtypes: Optional[Dict[str, Tuple[torch.dtype,
 def is_cpu(name: str, t: torch.Tensor) -> bool:
     """True for a CPU tensor (plain path), False for CUDA (hand kernel);
     raises for any other device."""
+    if t.is_cuda:
+        return False
     if t.device.type == "cpu":
         return True
-    if t.device.type == "cuda":
-        return False
     raise ValueError(f"{name}: no kernel for device {t.device}")

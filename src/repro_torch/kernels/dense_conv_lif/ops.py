@@ -10,12 +10,18 @@ Launch configuration (block_m/block_n) comes from the caller — in the
 serving pipeline the layer's `KernelSpec` from
 `core.hybrid.plan_vgg9_inference`. The clamped blocks of each call are
 recorded in ``LAUNCH_LOG`` so tests can assert the plan drives the launch,
-though the CUDA grid uses its own thread layout.
+though the CUDA grid uses its own layout: ``dense_geometry`` gives the
+kernel's row tile, rows per thread, threads and blocks.
+
+``dense_conv_lif_ordered_plain`` is the kernel's own sum order (k ascending,
+each product and sum rounded to float32) in PyTorch, for the tests and
+``chip_smoke.py`` to hold the kernel's bits against; no path runs it.
 """
 from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 from typing import Dict, List, Tuple
 
 import torch
@@ -30,8 +36,18 @@ KERNEL_LAUNCHES: collections.Counter = collections.Counter()
 # clamped launch configurations, in issue order (cleared with the counter)
 LAUNCH_LOG: List[Dict[str, int]] = []
 
-# the CUDA kernel keeps w [K, N] and bias [N] in static-size shared memory
+# the CUDA kernel keeps its patch tile, w [K, N] and bias [N] in shared
+# memory, at most what a block gets without opting in
 SMEM_LIMIT_BYTES = 48 * 1024
+# (rows a block, rows a thread, threads a block) of `dense_conv_lif.cu`. A
+# thread owns its rows x 4 adjacent channels (x 1 where N % 4 != 0); the
+# last block takes the M % 32 tail rows. At the served input layer (M =
+# 8192) that is 256 blocks. On an H100 (PERF.md) 16-row, 64-row and
+# 256-thread blocks timed within 4 % of it at M = 8192.
+DENSE_GEOMETRY = (32, 4, 128)
+
+_VP, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+DENSE_ARGTYPES = [_VP] * 5 + [_INT] * 4 + [_FLOAT, _FLOAT] + [_INT] * 3 + [_VP]
 
 
 def reset_launch_counts() -> None:
@@ -43,13 +59,11 @@ def launch_counts() -> Dict[str, int]:
     return dict(KERNEL_LAUNCHES)
 
 
-def dense_conv_lif_plain(patches: torch.Tensor, w2d: torch.Tensor,
-                         bias: torch.Tensor, *, num_steps: int, beta: float,
-                         theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version: [M, K] @ [K, N] + bias, then T LIF steps from
-    u = s = 0 -> (spikes [T, M, N], final u [M, N]). ``beta*u + current``
-    is rounded once, as in `lif_step.ops.lif_epilogue`."""
-    current = patches @ w2d + bias
+def _lif_steps(current: torch.Tensor, num_steps: int, beta: float, theta: float
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """T LIF steps on a constant current from u = s = 0 -> (spikes [T, ...],
+    final u). ``beta*u + current`` is rounded once, as in
+    `lif_step.ops.lif_epilogue`."""
     u = torch.zeros_like(current)
     s = torch.zeros_like(current)
     out = []
@@ -60,6 +74,49 @@ def dense_conv_lif_plain(patches: torch.Tensor, w2d: torch.Tensor,
     return torch.stack(out), u
 
 
+def dense_conv_lif_plain(patches: torch.Tensor, w2d: torch.Tensor,
+                         bias: torch.Tensor, *, num_steps: int, beta: float,
+                         theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version: [M, K] @ [K, N] + bias, then T LIF steps from
+    u = s = 0 -> (spikes [T, M, N], final u [M, N])."""
+    return _lif_steps(patches @ w2d + bias, num_steps, beta, theta)
+
+
+def dense_conv_lif_ordered_plain(patches: torch.Tensor, w2d: torch.Tensor,
+                                 bias: torch.Tensor, *, num_steps: int, beta: float,
+                                 theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`dense_conv_lif_plain` with the CUDA kernel's sum order: the product
+    summed k = 0..K-1, each product and each sum rounded to float32, then
+    the bias added. Bit for bit what the kernel computes; for tests only."""
+    acc = torch.zeros((patches.shape[0], w2d.shape[1]), dtype=torch.float32,
+                      device=patches.device)
+    for kk in range(patches.shape[1]):
+        acc = acc + patches[:, kk:kk + 1] * w2d[kk]
+    return _lif_steps(acc + bias, num_steps, beta, theta)
+
+
+def dense_smem_bytes(rows: int, k: int, n: int) -> int:
+    """Shared memory of a block: the [rows, K] patch tile, w, the bias."""
+    return 4 * (rows * k + k * n + n)
+
+
+@functools.lru_cache(maxsize=None)
+def dense_geometry(m: int, k: int, n: int) -> Tuple[int, int, int, int]:
+    """(rows a block, rows a thread, threads, blocks) of `dense_conv_lif.cu`
+    for [M, K] x [K, N]: ``DENSE_GEOMETRY``, its threads cut to the block's
+    micro-tiles where it has fewer. Raises on a problem the kernel does not
+    take.
+    """
+    if m < 1 or k < 1 or n < 1:
+        raise ValueError(f"dense_conv_lif: unsupported shape M={m} K={k} N={n}")
+    rows, per_thread, threads = DENSE_GEOMETRY
+    if dense_smem_bytes(rows, k, n) > SMEM_LIMIT_BYTES:
+        raise ValueError(f"dense_conv_lif: K={k} N={n} exceed {SMEM_LIMIT_BYTES} bytes "
+                         "of shared memory")
+    tiles = rows // per_thread * (n // 4 if n % 4 == 0 else n)
+    return rows, per_thread, min(threads, _round_up(tiles, 32)), -(-m // rows)
+
+
 def _dense_conv_lif_cuda(patches, w2d, bias, *, num_steps, beta, theta):
     _build.check_cuda_operands("dense_conv_lif", patches=patches, w2d=w2d, bias=bias)
     m, k = patches.shape
@@ -67,18 +124,14 @@ def _dense_conv_lif_cuda(patches, w2d, bias, *, num_steps, beta, theta):
     if k != k2 or bias.shape != (n,):
         raise ValueError(f"dense_conv_lif: shapes {tuple(patches.shape)} "
                          f"{tuple(w2d.shape)} {tuple(bias.shape)} disagree")
-    if (k * n + n) * 4 > SMEM_LIMIT_BYTES:
-        raise ValueError(f"dense_conv_lif: weights {k}x{n} exceed "
-                         f"{SMEM_LIMIT_BYTES} bytes of shared memory")
-    spikes = torch.empty((num_steps, m, n), dtype=torch.float32, device=patches.device)
-    u = torch.empty((m, n), dtype=torch.float32, device=patches.device)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
+    rows, per_thread, threads, _ = dense_geometry(m, k, n)
+    spikes = patches.new_empty((num_steps, m, n))      # float32, on the patches' device
+    u = patches.new_empty((m, n))
     _build.launch(
-        "dense_conv_lif",
-        [vp] * 5 + [ci] * 4 + [ctypes.c_float, ctypes.c_float, vp],
+        "dense_conv_lif", DENSE_ARGTYPES,
         _build.ptr(patches), _build.ptr(w2d), _build.ptr(bias),
         _build.ptr(spikes), _build.ptr(u), m, k, n, num_steps, beta, theta,
-        _build.stream())
+        rows, per_thread, threads, _build.stream())
     return spikes, u
 
 

@@ -31,11 +31,11 @@ import torch
 
 from ...core.quant import QTensor, unpack_int4
 from .. import _build
+from .._build import H100_SMS
 
 # name -> number of wrapper calls issued
 KERNEL_LAUNCHES: collections.Counter = collections.Counter()
 
-H100_SMS = 132
 #: k per stage and per split unit of the tensor-core kernel
 UNIT_K = 64
 #: channels per consumer warpgroup of the tensor-core kernel (wgmma's M)
@@ -190,7 +190,7 @@ def _int4_matmul_cuda(x, packed, scale, *, geometry=None, splits=None, sms=None)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0:
         return out
-    plan = int4_plan(m, k, n, x.dtype, sms or _sm_count(x.device.index), geometry, splits)
+    plan = int4_plan(m, k, n, x.dtype, sms or _build.sm_count(x.device.index), geometry, splits)
     if plan.path == "ragged" and -(-m // SIMT_TILE_M) > MAX_GRID_Y:
         raise ValueError(f"int4_matmul: M = {m} exceeds {SIMT_TILE_M * MAX_GRID_Y} rows")
     if plan.path == "tma" and -(-n // (WARPGROUP_N * plan.warpgroups * plan.tiles)) > MAX_GRID_Y:
@@ -209,11 +209,6 @@ def _int4_matmul_cuda(x, packed, scale, *, geometry=None, splits=None, sms=None)
         None if planes is None else _build.ptr(planes),
         None if partial is None else _build.ptr(partial), _build.stream())
     return out
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

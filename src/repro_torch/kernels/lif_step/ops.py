@@ -10,7 +10,8 @@ package's `lif_epilogue`, without the interpret flag). ``lif_epilogue_scan``
 runs all T timesteps of a layer from u = s = 0 and returns the spikes: on a
 CUDA tensor the hand kernel in ``csrc/lif_epilogue_scan.cu`` (one launch per
 layer), on a CPU tensor ``lif_epilogue_scan_plain``, a Python loop over
-``lif_epilogue``.
+``lif_epilogue``. Its launch geometry (float4 or scalar path, blocks)
+comes from ``epilogue_geometry``.
 
 Rounding: ``beta*u + I`` (``beta*u + (I + b)`` in the epilogue) is rounded
 once, not twice. The JAX reference, as XLA compiles it for the CPU,
@@ -21,12 +22,27 @@ device, without an FMA op.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
 
 from ...core.lif import _f32
 from .. import _build
+
+_VP, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+LIF_STEP_ARGTYPES = [_VP] * 5 + [ctypes.c_longlong, _FLOAT, _FLOAT, _VP]
+EPILOGUE_ARGTYPES = [_VP] * 3 + [ctypes.c_longlong, _INT, _INT, _FLOAT, _FLOAT,
+                                 _INT, _INT, _VP]
+
+# `lif_epilogue_scan.cu`: 256 threads a block, one group (a float4, or a
+# float where N % 4 != 0) a thread; T in EPILOGUE_UNROLLED_STEPS (every
+# served configuration but rate coding's T = 25) is unrolled, every load
+# before the recurrence; any other T loads one step ahead.
+EPILOGUE_THREADS = 256
+EPILOGUE_UNROLLED_STEPS = (2,)
+# past this many blocks the threads loop over the rest (32-bit thread ids)
+EPILOGUE_MAX_BLOCKS = 1 << 20
 
 
 def lif_update_plain(u: torch.Tensor, current: torch.Tensor, prev_spike: torch.Tensor,
@@ -45,9 +61,8 @@ def _lif_update_cuda(u, current, prev_spike, *, beta, theta):
                          f"{tuple(prev_spike.shape)} disagree")
     u_next = torch.empty_like(u)
     spikes = torch.empty_like(u)
-    vp = ctypes.c_void_p
     _build.launch(
-        "lif_step", [vp] * 5 + [ctypes.c_longlong, ctypes.c_float, ctypes.c_float, vp],
+        "lif_step", LIF_STEP_ARGTYPES,
         _build.ptr(u), _build.ptr(current), _build.ptr(prev_spike),
         _build.ptr(u_next), _build.ptr(spikes), u.numel(), beta, theta,
         _build.stream())
@@ -95,19 +110,31 @@ def lif_epilogue_scan_plain(cur: torch.Tensor, bias: torch.Tensor, *,
     return torch.stack(out)
 
 
+@functools.lru_cache(maxsize=None)
+def epilogue_geometry(rows: int, n: int, steps: int) -> Tuple[bool, int]:
+    """(vector, blocks) of `lif_epilogue_scan.cu` for cur [steps, rows, n]:
+    the float4 path where n % 4 == 0, else single floats; one block per
+    ``EPILOGUE_THREADS`` groups, at most ``EPILOGUE_MAX_BLOCKS``. Raises on
+    a problem the kernel does not take.
+    """
+    if rows < 1 or n < 1 or steps < 1:
+        raise ValueError(f"lif_epilogue_scan: unsupported shape T={steps} R={rows} N={n}")
+    vector = n % 4 == 0
+    groups = rows * (n // 4 if vector else n)
+    return vector, min(-(-groups // EPILOGUE_THREADS), EPILOGUE_MAX_BLOCKS)
+
+
 def _lif_epilogue_scan_cuda(cur, bias, *, beta, theta):
     _build.check_cuda_operands("lif_epilogue_scan", cur=cur, bias=bias)
     steps, rows, n = cur.shape
     if bias.shape != (n,):
         raise ValueError(f"lif_epilogue_scan: bias {tuple(bias.shape)} != ({n},)")
+    vector, blocks = epilogue_geometry(rows, n, steps)
     spikes = torch.empty_like(cur)
-    vp = ctypes.c_void_p
     _build.launch(
-        "lif_epilogue_scan",
-        [vp, vp, vp, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-         ctypes.c_float, ctypes.c_float, vp],
+        "lif_epilogue_scan", EPILOGUE_ARGTYPES,
         _build.ptr(cur), _build.ptr(bias), _build.ptr(spikes),
-        rows, n, steps, beta, theta, _build.stream())
+        rows, n, steps, beta, theta, vector, blocks, _build.stream())
     return spikes
 
 

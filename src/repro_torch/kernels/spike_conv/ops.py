@@ -32,6 +32,7 @@ import torch.nn.functional as F
 
 from ...core.tiling import round_up as _round_up
 from .. import _build
+from .._build import H100_SMS
 from .ref import im2col
 
 # name -> number of gated-matmul wrapper calls issued
@@ -51,7 +52,6 @@ EVENT_STAGE_WORDS = 2
 EVENT_STAGES = 3
 EVENT_MAX_SMEM = 225 * 1024      # bytes of shared memory a block takes (227 KB opt-in
                                  # less room for the kernel's static shared memory)
-H100_SMS = 132
 # geometries (rows, cols, rows_per_warp, cols_per_lane) of the in-kernel-
 # gated spike-bit core (`spike_matmul.cu`): a block owns `rows` x `cols`
 # outputs, each consumer warp rows_per_warp rows x 32 * cols_per_lane
@@ -145,7 +145,7 @@ def _spike_matmul_cuda(patches, w2d, *, gate, geometry=None):
     k2, n = w2d.shape
     if k != k2:
         raise ValueError(f"spike_matmul: K={k} != K'={k2}")
-    chosen = gated_geometry(m, k, n, _sm_count(patches.device.index), geometry)
+    chosen = gated_geometry(m, k, n, _build.sm_count(patches.device.index), geometry)
     out = torch.empty((m, n), dtype=torch.float32, device=patches.device)
     c_int = ctypes.c_int
     _build.launch(
@@ -280,11 +280,6 @@ def _fits(geometry, m, k, n) -> bool:
             and event_smem_bytes(rows, cols, k) <= EVENT_MAX_SMEM)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
 def _spike_matmul_mapped_cuda(patches, w2d, *, block_m, block_k, gate, geometry=None):
     """-> (out, occ, row_occ, the pre-pass's spike bitmask). ``geometry`` =
     (rows, cols) overrides `event_geometry`'s choice."""
@@ -293,7 +288,7 @@ def _spike_matmul_mapped_cuda(patches, w2d, *, block_m, block_k, gate, geometry=
     k2, n = w2d.shape
     if k != k2:
         raise ValueError(f"spike_matmul_mapped: K={k} != K'={k2}")
-    rows, cols = event_geometry(m, k, n, block_m, block_k, _sm_count(patches.device.index))
+    rows, cols = event_geometry(m, k, n, block_m, block_k, _build.sm_count(patches.device.index))
     if geometry is not None:
         if geometry not in EVENT_GEOMETRIES or not _fits(geometry, m, k, n):
             raise ValueError(f"spike_matmul_mapped: geometry {geometry} does not fit "

@@ -11,7 +11,8 @@ Bars: the gated matmuls' occupancy maps exactly equal and currents within
 order of the fp32 sum differs), and the two gated matmuls bit-identical to
 each other and to the plain k-ascending sum (all three sum k ascending) at
 every block geometry, density and gate setting; the LIF kernels bit-identical; the dense
-core's u within 1e-5 and its spikes equal wherever u is clear of theta; the
+core's u within 1e-5 and its spikes equal wherever u is clear of theta, and
+bit-identical to its ordered plain version (k ascending); the
 unfused pipeline bit-identical to the fused one; a training step's loss
 within 1e-4 and each gradient's relative L2 difference within 1e-3 of the
 CPU's (cuDNN and the CPU sum in different orders). The int4 matmul within
@@ -135,14 +136,96 @@ def test_spike_conv2d_mapped_stats_match_cpu(cuda):
         assert torch.equal(st[key].cpu(), v), key
 
 
+# the served epilogues' (R, N) at CIFAR10, 8 slots (conv1-6, fc0, fc1), and
+# two widths that take the scalar path, each at T = 1, 2, 4 and 25
+SERVED_EPILOGUES = [(8192, 112), (2048, 192), (2048, 216), (512, 480), (512, 504),
+                    (512, 560), (8, 1064), (8, 1000)]
+EPILOGUE_CASES = [(2, 8192, 112), (2, 8, 1064), (3, 100, 37)] + [
+    (steps, rows, n) for steps in (1, 2, 4, 25)
+    for rows, n in SERVED_EPILOGUES + [(100, 37), (50, 6)]
+    if (steps, rows, n) not in ((2, 8192, 112), (2, 8, 1064))]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("steps,rows,n", [(2, 8192, 112), (2, 8, 1064), (3, 100, 37)])
+@pytest.mark.parametrize("steps,rows,n", EPILOGUE_CASES)
 def test_lif_epilogue_scan_bit_identical(cuda, steps, rows, n):
     cur = _normal(16, (steps, rows, n), 0.6).to(cuda)
     bias = _normal(17, (n,), 0.1).to(cuda)
+    before = CUDA_LAUNCHES["lif_epilogue_scan"]
     out = lif_ops.lif_epilogue_scan(cur, bias, beta=BETA, theta=THETA)
+    torch.cuda.synchronize()
+    assert CUDA_LAUNCHES["lif_epilogue_scan"] == before + 1
     ref = lif_ops.lif_epilogue_scan_plain(cur, bias, beta=BETA, theta=THETA)
     assert torch.equal(out, ref)
+
+
+def _column_bias(seed, n):
+    """A distinct bias per column around theta, shuffled, so that with zero
+    currents each column's spike train depends on its own column."""
+    b = np.linspace(0.0, 1.2, n, dtype=np.float32)
+    return torch.from_numpy(b[np.random.default_rng(seed).permutation(n)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps", [1, 2, 25])
+@pytest.mark.parametrize("rows,n", [(2048, 192), (8, 1064), (100, 37)])
+def test_lif_epilogue_scan_column_bias(cuda, rows, n, steps):
+    """Zero currents and a bias distinct per column: a wrong column index
+    shows as wrong spikes, on the unrolled T = 2 and on the general-T path
+    (T = 1, 25)."""
+    cur = torch.zeros((steps, rows, n), device=cuda)
+    bias = _column_bias(32, n).to(cuda)
+    ref = lif_ops.lif_epilogue_scan_plain(cur, bias, beta=BETA, theta=THETA)
+    assert 0 < ref.sum().item() < ref.numel()
+    out = lif_ops.lif_epilogue_scan(cur, bias, beta=BETA, theta=THETA)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(8192, 27, 64), (100, 27, 40), (8192, 75, 64)])
+def test_dense_conv_lif_bit_identical_to_ordered_plain(cuda, m, k, n):
+    patches = torch.from_numpy(np.random.default_rng(33).random((m, k))
+                               .astype(np.float32)).to(cuda)
+    w2d = _normal(34, (k, n), 0.3).to(cuda)
+    bias = _normal(35, (n,), 0.1).to(cuda)
+    before = CUDA_LAUNCHES["dense_conv_lif"]
+    s, u = dense_ops.dense_conv_lif(patches, w2d, bias, num_steps=2, beta=BETA, theta=THETA)
+    torch.cuda.synchronize()
+    assert CUDA_LAUNCHES["dense_conv_lif"] == before + 1
+    rs, ru = dense_ops.dense_conv_lif_ordered_plain(patches, w2d, bias, num_steps=2,
+                                                    beta=BETA, theta=THETA)
+    assert torch.equal(s, rs) and torch.equal(u, ru)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(8192, 27, 64), (100, 27, 40), (70, 27, 6), (45, 75, 64)])
+def test_dense_conv_lif_tail_tiles_and_paths(cuda, m, k, n):
+    """The ordered sum's bits with a tail tile (M % 32 != 0, its patch
+    floats not a multiple of 4), the one-channel path (N % 4 != 0) and a
+    staging of more than one pass (K = 75)."""
+    patches = torch.from_numpy(np.random.default_rng(36).random((m, k))
+                               .astype(np.float32)).to(cuda)
+    w2d = _normal(37, (k, n), 0.3).to(cuda)
+    bias = _normal(38, (n,), 0.1).to(cuda)
+    s, u = dense_ops.dense_conv_lif(patches, w2d, bias, num_steps=3, beta=BETA, theta=THETA)
+    rs, ru = dense_ops.dense_conv_lif_ordered_plain(patches, w2d, bias, num_steps=3,
+                                                    beta=BETA, theta=THETA)
+    assert torch.equal(s, rs) and torch.equal(u, ru)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n", [(8192, 64), (100, 40), (70, 6)])
+def test_dense_conv_lif_column_bias(cuda, m, n):
+    """Zero patches and a bias distinct per column: a wrong column index
+    shows as wrong spikes."""
+    patches = torch.zeros((m, 27), device=cuda)
+    w2d = _normal(39, (27, n), 0.3).to(cuda)
+    bias = _column_bias(40, n).to(cuda)
+    s, u = dense_ops.dense_conv_lif(patches, w2d, bias, num_steps=4, beta=BETA, theta=THETA)
+    rs, ru = dense_ops.dense_conv_lif_ordered_plain(patches, w2d, bias, num_steps=4,
+                                                    beta=BETA, theta=THETA)
+    assert 0 < rs.sum().item() < rs.numel()
+    assert torch.equal(s, rs) and torch.equal(u, ru)
 
 
 @pytest.mark.cuda

@@ -14,6 +14,7 @@ import torch
 from hypothesis import given, settings, strategies as st
 
 from repro.kernels.dense_conv_lif import ops as jax_dense
+from repro.kernels.dense_conv_lif.dense_conv_lif import dense_conv_lif as jax_dense_conv_lif
 from repro.kernels.lif_step.ops import lif_epilogue as jax_lif_epilogue
 from repro.kernels.spike_conv import ops as jax_sc
 from repro.kernels.spike_conv.ref import im2col as jax_im2col
@@ -500,7 +501,9 @@ def test_lif_epilogue_step_bit_exact():
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
 
 
-@pytest.mark.parametrize("steps,rows,n", [(2, 64, 24), (4, 37, 130)])
+@pytest.mark.parametrize("steps,rows,n", [(2, 64, 24), (4, 37, 130), (2, 8, 1064),
+                                         (2, 16, 112), (25, 6, 24), (2, 4, 5000),
+                                         (1, 9, 37), (25, 3, 6)])
 def test_lif_epilogue_scan_matches_lax_scan(steps, rows, n):
     cur = _normal(9, (steps, rows, n), 0.6)
     b = _normal(10, (n,), 0.1)
@@ -518,9 +521,129 @@ def test_lif_epilogue_scan_matches_lax_scan(steps, rows, n):
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
 
 
+# the served epilogues' (R, N) at CIFAR10, 8 slots, T = 2 (conv1-6, fc0, fc1)
+SERVED_EPILOGUES = [(8192, 112), (2048, 192), (2048, 216), (512, 480), (512, 504),
+                    (512, 560), (8, 1064), (8, 1000)]
+
+
+@pytest.mark.parametrize("rows,n", SERVED_EPILOGUES)
+def test_epilogue_geometry_at_served_shapes(rows, n):
+    vector, blocks = lif_ops.epilogue_geometry(rows, n, 2)
+    groups = rows * n // 4
+    assert vector and blocks == -(-groups // lif_ops.EPILOGUE_THREADS)
+    if groups >= lif_ops.EPILOGUE_THREADS * _build.H100_SMS:      # the convs fill the card
+        assert blocks >= _build.H100_SMS
+
+
+def test_epilogue_geometry_paths():
+    assert lif_ops.epilogue_geometry(100, 37, 3) == (False, 15)      # scalar, T not unrolled
+    assert lif_ops.epilogue_geometry(8192, 112, 25) == (True, 896)
+    assert lif_ops.epilogue_geometry(8192, 112, 2) == (True, 896)
+    assert lif_ops.epilogue_geometry(8, 1064, 2) == (True, 9)
+    assert lif_ops.epilogue_geometry(3, 6, 1) == (False, 1)
+    # past 2^20 blocks the threads loop over the rest
+    assert lif_ops.epilogue_geometry(1 << 20, 1024, 2) == (True, lif_ops.EPILOGUE_MAX_BLOCKS)
+
+
+@pytest.mark.parametrize("rows,n,steps", [(0, 112, 2), (8, 0, 2), (8, 112, 0)])
+def test_epilogue_geometry_refuses_what_the_kernel_does_not_take(rows, n, steps):
+    with pytest.raises(ValueError, match="unsupported shape"):
+        lif_ops.epilogue_geometry(rows, n, steps)
+
+
+def test_epilogue_geometry_tables_are_the_ones_the_kernel_instantiates():
+    import re
+    src = (_build.PACKAGE_DIR / "kernels/lif_step/csrc/lif_epilogue_scan.cu").read_text()
+    steps = [int(t) for t in re.findall(r"case (\d+): kernel = &lif_epilogue_kernel<V, \1>;",
+                                        src)]
+    assert steps == list(lif_ops.EPILOGUE_UNROLLED_STEPS)
+    assert f"kThreads = {lif_ops.EPILOGUE_THREADS};" in src
+
+
 # ---------------------------------------------------------------------------
 # Dense core
 # ---------------------------------------------------------------------------
+
+def _ordered_numpy(p, w, b, steps):
+    """The kernel's order in numpy float32: k ascending, each product and sum
+    rounded, then the bias; the LIF sum rounded once (float64 then float32)."""
+    acc = np.zeros((p.shape[0], w.shape[1]), np.float32)
+    for kk in range(p.shape[1]):
+        acc = (acc + (p[:, kk:kk + 1] * w[kk]).astype(np.float32)).astype(np.float32)
+    cur = (acc + b).astype(np.float32)
+    u = np.zeros_like(cur)
+    s = np.zeros_like(cur)
+    out = []
+    for _ in range(steps):
+        u = ((np.float64(np.float32(BETA)) * u.astype(np.float64) + cur.astype(np.float64))
+             .astype(np.float32) - s * np.float32(THETA)).astype(np.float32)
+        s = (u > THETA).astype(np.float32)
+        out.append(s)
+    return np.stack(out), u
+
+
+@pytest.mark.parametrize("m,k,n,steps", [(200, 27, 64, 2), (37, 75, 40, 3), (16, 27, 6, 1)])
+def test_dense_conv_lif_ordered_plain_matches_numpy_loop(m, k, n, steps):
+    p = np.random.default_rng(21).random((m, k)).astype(np.float32)
+    w, b = _normal(22, (k, n), 0.3), _normal(23, (n,), 0.1)
+    rs, ru = _ordered_numpy(p, w, b, steps)
+    ts, tu = dense_ops.dense_conv_lif_ordered_plain(
+        *map(torch.from_numpy, (p, w, b)), num_steps=steps, beta=BETA, theta=THETA)
+    np.testing.assert_array_equal(tu.numpy(), ru)
+    np.testing.assert_array_equal(ts.numpy(), rs)
+
+
+def test_dense_conv_lif_ordered_plain_matches_jax_kernel():
+    """u within 1e-5 of the JAX kernel (interpret mode; its dot sums in
+    another order), spikes equal wherever u_t is clear of theta."""
+    m, k, n, steps = 256, 27, 64, 2
+    p = np.random.default_rng(24).random((m, k)).astype(np.float32)
+    w, b = _normal(25, (k, n), 0.3), _normal(26, (n,), 0.1)
+    js, ju = jax_dense_conv_lif(*map(jnp.asarray, (p, w, b)), num_steps=steps, beta=BETA,
+                                theta=THETA, block_m=128, block_n=64, interpret=True)
+    args = tuple(map(torch.from_numpy, (p, w, b)))
+    ts, tu = dense_ops.dense_conv_lif_ordered_plain(*args, num_steps=steps, beta=BETA,
+                                                    theta=THETA)
+    np.testing.assert_allclose(tu.numpy(), np.asarray(ju), atol=1e-5)
+    for t in range(steps):
+        _, u_t = dense_ops.dense_conv_lif_ordered_plain(*args, num_steps=t + 1, beta=BETA,
+                                                        theta=THETA)
+        clear = np.abs(u_t.numpy() - THETA) > 1e-5
+        np.testing.assert_array_equal(ts[t].numpy()[clear], np.asarray(js)[t][clear])
+
+
+def test_dense_geometry_at_the_served_shape():
+    rows, per, threads, blocks = dense_ops.dense_geometry(8192, 27, 64)
+    assert (rows, per, threads) == dense_ops.DENSE_GEOMETRY
+    assert blocks == 8192 // rows >= _build.H100_SMS
+    assert dense_ops.dense_smem_bytes(rows, 27, 64) <= dense_ops.SMEM_LIMIT_BYTES
+
+
+def test_dense_geometry_small_and_scalar_shapes():
+    # a tail block; N = 40: 8 row lanes x 10 channel groups, threads cut to 96
+    assert dense_ops.dense_geometry(100, 27, 40) == (32, 4, 96, 4)
+    # N % 4 != 0: one channel a thread, threads cut to the block's 8 x 6 tiles
+    assert dense_ops.dense_geometry(64, 27, 6) == (32, 4, 64, 2)
+
+
+@pytest.mark.parametrize("m,k,n,match", [
+    (0, 27, 64, "unsupported shape"),
+    (64, 0, 64, "unsupported shape"),
+    (64, 27, 440, "shared memory"),              # w, bias and 32 patch rows > 48 KB
+    (64, 200, 32, "shared memory"),              # the 32 x 200 patch tile and w > 48 KB
+])
+def test_dense_geometry_refuses_what_the_kernel_does_not_take(m, k, n, match):
+    with pytest.raises(ValueError, match=match):
+        dense_ops.dense_geometry(m, k, n)
+
+
+def test_dense_geometries_are_the_ones_the_kernel_instantiates():
+    import re
+    src = (_build.PACKAGE_DIR / "kernels/dense_conv_lif/csrc/dense_conv_lif.cu").read_text()
+    built = [tuple(map(int, g)) for g in re.findall(r"^\s*GEOMETRY\((\d+), (\d+)\)", src, re.M)]
+    rows, per, threads = dense_ops.DENSE_GEOMETRY
+    assert built == [(rows, per)]
+    assert rows % 4 == 0 and rows % per == 0 and threads <= 256 and threads % 32 == 0
 
 @pytest.mark.parametrize("b,hw,cout,blocks", [(2, 16, 8, (256, 128)), (3, 5, 64, (128, 128))])
 def test_input_layer_conv_lif_matches_reference(b, hw, cout, blocks):
