@@ -48,7 +48,30 @@ Run from the root of a checkout. Phases, one line or block each:
              (d) the layer-0 prefill attention of a 2048-token prompt
              through `flash_attention`, in fp32 and in bf16, against the
              model's own `chunked_causal_attention` on the same values in
-             fp32, the flash kernel's main path (a rerun bit-identical).
+             fp32, the flash kernel's main path (a rerun bit-identical);
+8. precision — (a) adaptive-precision serving at full CIFAR10 width: one
+             pre-warmed fp32+int4 variant registry behind three engines
+             (`PrecisionRunner` pinned fp32, pinned int4, adaptive; each
+             controller bound to its sparsity scheduler) serving phase 4's
+             17 requests in two waves, every third pinned to fp32: pinned
+             requests at fp32, every request's logits bit-identical to a
+             single-precision engine's at the precision it was served, each
+             engine step launching one fused pipeline per precision that
+             holds slots, the adaptive engine's served precisions equal to
+             the CPU's, its mean served energy below pinned fp32's under Eq. 3
+             and the analytical model; per mode host ms per step, device
+             busy share and hand-kernel ms (torch.profiler), and the device
+             ms of the int4 forward's weight view; (b) the adaptive run
+             again with `obs.Observability` attached: results, decisions
+             and admissions bit-identical, the precision gauges and energy
+             counters in its snapshot; (c) qwen1.5-4b at full width and depth
+             2, fp32 and int4 variants behind one adaptive engine (every
+             other request pinned to int4): each stream equal to the plain
+             engine's at its precision; (d) subprocesses, each of which must
+             exit 0: `launch.serve` SNN with `--precision adaptive --metrics
+             prom`, LM with `--scheduler slo --slo-ms 3000`, and
+             `launch.quant_sparsity_study` on the card beside its CPU table
+             (every number finite).
 
 Phase 3 holds `spike_matmul_mapped` at spike densities 0.1, 0.33 and 1.0:
 within 1e-4 of the plain product, bit for bit the plain k-ascending sum
@@ -1301,7 +1324,8 @@ def check_lm_against_cpu(torch, cfg, device, errors):
     pos0, take = torch.tensor([0, 3, 0, 7]), torch.tensor([16, 11, 16, 6])
     _, card, _ = tf.decode_chunk(params, tf.init_cache(cfg, LM_SLOTS, 64, device),
                                  toks.to(device), pos0.to(device), take.to(device), cfg)
-    _, ref, _ = tf.decode_chunk(cpu, tf.init_cache(cfg, LM_SLOTS, 64), toks, pos0, take, cfg)
+    _, ref, _ = tf.decode_chunk(cpu, tf.init_cache(cfg, LM_SLOTS, 64, "cpu"), toks, pos0,
+                                take, cfg)
     card = card.cpu()
     worst, flips, clear = 0.0, 0, 0
     for r in range(LM_SLOTS):
@@ -1393,6 +1417,372 @@ def check_prefill_attention(torch, cfg, params, errors, seq=2048):
         res[name] = {"launches": launches, "err": err, "tol": tol, "flash_ms": flash_ms,
                      "chunked_ms": chunked_ms}
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 8: adaptive precision, observability, the CLI and the study
+# ---------------------------------------------------------------------------
+
+PRECISION_MODES = ("fp32", "int4", "adaptive")
+
+
+def precision_options(n):
+    """make_requests' sources, every third request pinned to fp32."""
+    return [dict(source="sparse" if i % 2 == 0 else "dense",
+                 **({"pin_precision": "fp32"} if i % 3 == 0 else {})) for i in range(n)]
+
+
+def precision_engine(registry, cfg, mode, obs=None):
+    """One engine over the shared registry: `PrecisionRunner` in ``mode``
+    with a fresh controller bound to a fresh sparsity scheduler."""
+    from repro_torch.serve.api import EngineConfig
+    from repro_torch.serve.core import EngineCore
+    from repro_torch.serve.precision import (PrecisionController, PrecisionRunner,
+                                             bind_controller, make_snn_pricer)
+    from repro_torch.serve.scheduler import make_scheduler
+    controller = PrecisionController(pricer=make_snn_pricer(cfg), dense_threshold=0.8)
+    scheduler = make_scheduler("sparsity")
+    bind_controller(scheduler, controller)
+    engine = EngineCore(PrecisionRunner(registry, controller, mode=mode),
+                        EngineConfig(slots=SLOTS, scheduler="sparsity", precision=mode),
+                        scheduler=scheduler, obs=obs)
+    return engine, controller, scheduler
+
+
+def serve_waves(torch, engine, imgs, options, device):
+    """The trace in two waves, as the reference's precision benchmark
+    serves it (the second wave is decided with what the first taught the
+    scheduler). Returns (results in order, one (request ids admitted,
+    hand-kernel launches, synchronized host ms) per engine step)."""
+    from repro_torch.kernels import CUDA_LAUNCHES
+    half = len(imgs) // 2
+    results, steps = [], []
+    for lo, hi in ((0, half), (half, len(imgs))):
+        ids = [engine.submit(img, **o) for img, o in zip(imgs[lo:hi], options[lo:hi])]
+        while engine.pending() or engine.in_flight():
+            logged, before = len(engine.admission_log), dict(CUDA_LAUNCHES)
+            t0 = time.perf_counter()
+            engine.step()
+            sync(torch, device)
+            ms = (time.perf_counter() - t0) * 1e3
+            steps.append(([i for _, a in engine.admission_log[logged:] for i in a],
+                          {k: CUDA_LAUNCHES[k] - before[k] for k in before}, ms))
+        done = engine.run_until_complete()
+        results += [done[i] for i in ids]
+    return results, steps
+
+
+def decision_log(controller):
+    return [(d.request_id, d.precision, d.reason, d.predicted_skip, d.prices)
+            for d in controller.decisions]
+
+
+def learned_state(controller, scheduler):
+    """The EWMAs a decision rests on: the controller's per precision and
+    the scheduler's per source (what it publishes to a registry)."""
+    from repro_torch.obs import MetricsRegistry
+    reg = MetricsRegistry()
+    scheduler.metrics_into(reg)
+    return {"controller_skip_ewma": dict(controller.skip_ewma),
+            "scheduler": {k: v["value"] for k, v in reg.snapshot().items()}}
+
+
+def profile_precision(torch, registry, cfg, mode, imgs, options):
+    """Device kernel ms per engine step of one served trace in ``mode``,
+    from torch.profiler (kernel events only), total and per hand kernel."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    engine, _, _ = precision_engine(registry, cfg, mode)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, steps = serve_waves(torch, engine, imgs, options, "cuda")
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    n = len(steps)
+    hand = {}
+    for kname, functions in hand_kernel_functions().items():
+        found = [e for e in kernels if re.search(rf"\b({'|'.join(functions)})\b", e.key)]
+        if found:
+            hand[kname] = sum(e.self_device_time_total for e in found) / 1e3 / n
+    return sum(e.self_device_time_total for e in kernels) / 1e3 / n, hand
+
+
+def quantized_view_ms(torch, params, cfg, calls=10):
+    """What the int4 variant's forward adds before its first kernel: the
+    fake-quant view of every weight leaf (`models.vgg9.quantized_view`),
+    recomputed per forward. Device ms per call (torch.profiler) and
+    synchronized host ms per call."""
+    import dataclasses
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.vgg9 import quantized_view
+    int4 = dataclasses.replace(cfg, quant_bits=4)
+    quantized_view(params, int4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        quantized_view(params, int4)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / calls
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            quantized_view(params, int4)
+        torch.cuda.synchronize()
+    device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / calls
+    return device_ms, host_ms
+
+
+def check_precision_serving(torch, cfg, params_cpu, errors):
+    """Phases 8a and 8b: adaptive SNN serving at full width, then the
+    adaptive run again with the observability plane attached."""
+    import numpy as np
+    from repro_torch.kernels import CUDA_LAUNCHES, reset_cuda_launches
+    from repro_torch.obs import Observability, to_prometheus
+    from repro_torch.serve.api import EngineConfig
+    from repro_torch.serve.core import EngineCore
+    from repro_torch.serve.precision import make_snn_variants
+
+    params = {k: {kk: v.to("cuda") for kk, v in leaf.items()} for k, leaf in params_cpu.items()}
+    imgs = make_requests(torch, cfg)
+    options = precision_options(len(imgs))
+    pinned = [i for i, o in enumerate(options) if "pin_precision" in o]
+    n_spiking = len(cfg.conv_channels) - 1
+    per_precision = {"dense_conv_lif": 1, "spike_matmul_mapped": n_spiking,
+                     "lif_epilogue_scan": n_spiking + 2}
+
+    t0 = time.perf_counter()
+    registry = make_snn_variants(cfg, params, device="cuda")
+    registry.prewarm(SLOTS)
+    torch.cuda.synchronize()
+    out = {"prewarm_s": time.perf_counter() - t0, "modes": {}}
+
+    # the bit-identity references: plain single-precision SNNRunner engines
+    refs = {}
+    for prec in registry.precisions:
+        engine = EngineCore(registry.runner(prec), EngineConfig(slots=SLOTS))
+        ids = [engine.submit(img, **o) for img, o in zip(imgs, options)]
+        done = engine.run_until_complete()
+        refs[prec] = [done[i].outputs for i in ids]
+
+    runs = {}
+    for mode in PRECISION_MODES:
+        engine, controller, scheduler = precision_engine(registry, cfg, mode)
+        reset_cuda_launches()
+        res, steps = serve_waves(torch, engine, imgs, options, "cuda")
+        launches = dict(CUDA_LAUNCHES)
+        served = [r.stats["precision"] for r in res]
+        runs[mode] = (res, engine, controller, scheduler, launches)
+        for i in pinned:
+            if served[i] != "fp32":
+                errors.append(f"precision {mode}: pinned request {i} served {served[i]}")
+        for i, r in enumerate(res):
+            if r.status != "ok" or not np.array_equal(r.outputs, refs[served[i]][i]):
+                errors.append(f"precision {mode}: request {i} ({served[i]}) status={r.status}, "
+                              f"logits differ from the single-precision engine's")
+        by_id = {r.request_id: p for r, p in zip(res, served)}
+        for admitted, step_launches, _ in steps:
+            occupied = len({by_id[i] for i in admitted})
+            want = {k: per_precision.get(k, 0) * occupied for k in step_launches}
+            if step_launches != want:
+                errors.append(f"precision {mode}: a step admitting {admitted} launched "
+                              f"{step_launches}, want {want} ({occupied} precisions)")
+        step_ms = [ms for _, _, ms in steps]
+        out["modes"][mode] = {
+            "precision_counts": {p: served.count(p) for p in registry.precisions},
+            "served_energy_j": float(np.mean([r.stats["served_energy_j"] for r in res])),
+            "served_energy_analytical_j": float(np.mean(
+                [r.stats["served_energy_analytical_j"] for r in res])),
+            "steps": len(steps), "ms_per_step": step_ms,
+            "median_ms_per_step": float(np.median(step_ms)),
+            "occupied_precisions_per_step": [len({by_id[i] for i in a}) for a, _, _ in steps],
+            "launches": launches, "served": served}
+    fp32 = out["modes"]["fp32"]
+    for mode, row in out["modes"].items():
+        row["win_eq3"] = fp32["served_energy_j"] / row["served_energy_j"]
+        row["win_analytical"] = fp32["served_energy_analytical_j"] / \
+            row["served_energy_analytical_j"]
+    adaptive = out["modes"]["adaptive"]
+    if not (adaptive["win_eq3"] > 1.0 and adaptive["win_analytical"] > 1.0):
+        errors.append(f"precision: adaptive served energy not below pinned fp32's "
+                      f"(Eq. 3 x{adaptive['win_eq3']}, analytical x{adaptive['win_analytical']})")
+    out["controller"] = runs["adaptive"][2].summary()
+
+    # device busy share per mode, and what the int4 forward's weight view costs
+    for mode, row in out["modes"].items():
+        busy, hand = profile_precision(torch, registry, cfg, mode, imgs, options)
+        row.update(busy_ms_per_step=busy, busy_share=busy / row["median_ms_per_step"],
+                   hand_kernel_ms_per_step=hand)
+    out["quantized_view_device_ms"], out["quantized_view_host_ms"] = \
+        quantized_view_ms(torch, params, cfg)
+
+    # the same adaptive engine on the CPU's plain path: the same decisions
+    cpu_registry = make_snn_variants(cfg, params_cpu, device="cpu")
+    cpu_engine, cpu_controller, cpu_scheduler = precision_engine(cpu_registry, cfg, "adaptive")
+    cpu_res, _ = serve_waves(torch, cpu_engine, imgs, options, "cpu")
+    cpu_served = [r.stats["precision"] for r in cpu_res]
+    res, _, controller, scheduler, _ = runs["adaptive"]
+    out["cpu_served"] = cpu_served
+    out["cpu_max_dlogits"] = max(float(np.abs(a.outputs - b.outputs).max())
+                                 for a, b in zip(res, cpu_res))
+    if cpu_served != adaptive["served"]:
+        card_log = {d[0]: d for d in decision_log(controller)}
+        cpu_log = {d[0]: d for d in decision_log(cpu_controller)}
+        for r, a, b in zip(res, adaptive["served"], cpu_served):
+            if a != b:
+                print(f"  precision mismatch: request {r.request_id} card {a} "
+                      f"{card_log.get(r.request_id)} CPU {b} {cpu_log.get(r.request_id)}")
+        print(f"  card EWMAs {learned_state(controller, scheduler)}")
+        print(f"  CPU EWMAs {learned_state(cpu_controller, cpu_scheduler)}")
+        errors.append(f"precision: served precisions on the card {adaptive['served']} "
+                      f"!= the CPU's {cpu_served}")
+
+    # 8b: the adaptive run with the observability plane attached
+    bundle = Observability()
+    obs_engine, obs_controller, _ = precision_engine(registry, cfg, "adaptive", obs=bundle)
+    obs_res, obs_steps = serve_waves(torch, obs_engine, imgs, options, "cuda")
+    same = (all(np.array_equal(a.outputs, b.outputs) and dict(a.stats) == dict(b.stats)
+                for a, b in zip(obs_res, res))
+            and obs_engine.admission_log == runs["adaptive"][1].admission_log
+            and decision_log(obs_controller) == decision_log(controller))
+    snap = bundle.snapshot()
+    metrics = snap["metrics"]
+    missing = [k for k in ("precision_decisions", "precision_downshifted",
+                           "precision_served_fp32", "precision_served_int4",
+                           "precision_served_energy_eq3_j",
+                           "precision_served_energy_analytical_j") if k not in metrics]
+    if not same or missing:
+        errors.append(f"precision obs: attached == detached {same}; missing metrics {missing}")
+    out["obs"] = {"bit_identical": same, "spans": len(snap["trace"]),
+                  "prometheus_lines": len(to_prometheus(metrics).splitlines()),
+                  "metrics": len(metrics),
+                  "median_ms_per_step": float(np.median([ms for _, _, ms in obs_steps]))}
+
+    for mode, row in out["modes"].items():
+        print(f"precision {mode}: served {row['precision_counts']} in {row['steps']} engine "
+              f"steps (occupied precisions per step {row['occupied_precisions_per_step']}); "
+              f"mean served energy Eq. 3 {row['served_energy_j']:.4e} J, analytical "
+              f"{row['served_energy_analytical_j']:.4e} J; win over pinned fp32 Eq. 3 "
+              f"x{row['win_eq3']:.4f}, analytical x{row['win_analytical']:.4f}; host "
+              f"{row['median_ms_per_step']:.3f} ms/step (median, synchronized); device busy "
+              f"{row['busy_ms_per_step']:.3f} ms/step ({100 * row['busy_share']:.1f}% of the "
+              f"step); hand kernels ms/step "
+              + ", ".join(f"{k} {v:.4f}" for k, v in row["hand_kernel_ms_per_step"].items()))
+    print(f"precision: registry prewarm {out['prewarm_s']:.2f} s; quantized_view (int4 weight "
+          f"view, once per int4 forward) device {out['quantized_view_device_ms']:.4f} ms, host "
+          f"{out['quantized_view_host_ms']:.3f} ms per call; card = CPU served precisions "
+          f"{cpu_served == adaptive['served']}, max|dlogits| {out['cpu_max_dlogits']:.3e}; "
+          f"controller {out['controller']}")
+    print(f"precision obs: attached == detached {same}; {out['obs']['spans']} spans, "
+          f"{out['obs']['metrics']} metrics, {out['obs']['prometheus_lines']} Prometheus lines; "
+          f"host {out['obs']['median_ms_per_step']:.3f} ms/step attached against "
+          f"{adaptive['median_ms_per_step']:.3f} detached (median, synchronized)")
+    return out
+
+
+def check_lm_precision(torch, cfg, errors):
+    """Phase 8c: qwen's fp32 and int4 variants behind one adaptive engine,
+    every other request pinned to int4, against plain LMRunner engines."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.api import EngineConfig
+    from repro_torch.serve.core import EngineCore
+    from repro_torch.serve.precision import PrecisionRunner, make_lm_variants
+    params = tf.init_params(torch.Generator(device="cuda").manual_seed(2), cfg, "cuda")
+    t0 = time.perf_counter()
+    registry = make_lm_variants(cfg, params, max_seq=LM_MAX_SEQ, device="cuda")
+    registry.prewarm(LM_SLOTS)
+    torch.cuda.synchronize()
+    prewarm_s = time.perf_counter() - t0
+    prompts, opts = lm_trace(cfg.vocab)
+    pinned = [dict(o, **({"pin_precision": "int4"} if i % 2 else {})) for i, o in enumerate(opts)]
+    config = EngineConfig(slots=LM_SLOTS, prefill_chunk=LM_CHUNK)
+    engine = EngineCore(PrecisionRunner(registry), config)
+    ids = [engine.submit(p, max_new_tokens=LM_NEW, **o) for p, o in zip(prompts, pinned)]
+    done = engine.run_until_complete()
+    res = [done[i] for i in ids]
+    served = [r.stats["precision"] for r in res]
+    equal = []
+    for prec in registry.precisions:
+        plain = EngineCore(registry.runner(prec), config)
+        rids = [plain.submit(p, max_new_tokens=LM_NEW, **o) for p, o in zip(prompts, opts)]
+        ref = plain.run_until_complete()
+        for i, r in enumerate(res):
+            if served[i] == prec:
+                equal.append(r.outputs == ref[rids[i]].outputs)
+                if not equal[-1] or r.status != "ok" or len(r.outputs) != len(prompts[i]) + LM_NEW:
+                    errors.append(f"lm precision: request {i} ({prec}) status={r.status}, stream "
+                                  f"differs from the plain {prec} engine's")
+    if served != ["int4" if i % 2 else "fp32" for i in range(len(prompts))]:
+        errors.append(f"lm precision: served {served}")
+    print(f"lm precision ({cfg.n_layers} layers, full width): registry prewarm {prewarm_s:.2f} s; "
+          f"served {served}; {sum(equal)}/{len(equal)} streams equal to the plain engine's at "
+          f"their precision")
+    del registry, params
+    torch.cuda.empty_cache()
+    return {"prewarm_s": prewarm_s, "served": served, "streams_equal": sum(equal)}
+
+
+def study_table(stdout):
+    """The study's rows: {precision: (accuracy, spikes per image, uJ)}."""
+    rows = {}
+    for line in stdout.splitlines():
+        parts = line.split()
+        if len(parts) == 5 and parts[-1] == "uJ":
+            rows[parts[0]] = tuple(float(x) for x in parts[1:4])
+    return rows
+
+
+def check_entry_points(errors):
+    """Phase 8d: the CLI's new flags and the study, each in a subprocess
+    (the study also on the CPU, beside it); any non-zero exit fails."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    runs = {"serve snn": ["repro_torch.launch.serve", "--workload", "snn", "--scheduler",
+                          "sparsity", "--mixed-trace", "--precision", "adaptive",
+                          "--metrics", "prom"],
+            "serve lm": ["repro_torch.launch.serve", "--workload", "lm", "--scheduler", "slo",
+                         "--slo-ms", "3000", "--prefill-chunk", "8"],
+            "study": ["repro_torch.launch.quant_sparsity_study"]}
+    cpu_study = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.quant_sparsity_study",
+                                  "--device", "cpu"], cwd=ROOT, env=env, text=True,
+                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    outs = {}
+    try:
+        for name, args in runs.items():
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, env=env, text=True,
+                                  capture_output=True, timeout=600)
+            outs[name] = (proc.returncode, proc.stdout, proc.stderr, time.perf_counter() - t0)
+        stdout, stderr = cpu_study.communicate(timeout=600)
+    finally:
+        if cpu_study.poll() is None:
+            cpu_study.kill()
+            cpu_study.communicate()
+    outs["study cpu"] = (cpu_study.returncode, stdout, stderr, None)
+    result = {}
+    for name, (rc, stdout, stderr, seconds) in outs.items():
+        result[name] = {"rc": rc, "seconds": seconds}
+        if rc != 0:
+            errors.append(f"{name}: exit {rc}: {stderr[-2000:]}")
+    snn_out, lm_out = outs["serve snn"][1], outs["serve lm"][1]
+    reqs = [line for line in snn_out.splitlines() if line.startswith("req")]
+    statuses = [w for line in lm_out.splitlines() if line.startswith("req")
+                for w in line.split() if w.startswith("status=")]
+    print(f"cli snn --precision adaptive --metrics prom: rc {outs['serve snn'][0]}, "
+          f"{len(reqs)} requests, precisions "
+          f"{[w for line in reqs for w in line.split() if w.startswith('precision=')]}, "
+          f"{sum(line.startswith('# TYPE') for line in snn_out.splitlines())} metrics; "
+          + next((line[:160] for line in snn_out.splitlines()
+                  if line.startswith("precision controller")), "no controller line"))
+    print(f"cli lm --scheduler slo --slo-ms 3000: rc {outs['serve lm'][0]}, {statuses}")
+    card, cpu = study_table(outs["study"][1]), study_table(outs["study cpu"][1])
+    if set(card) != {"fp32", "int8", "int4", "int3"} or set(cpu) != set(card) or not all(
+            math.isfinite(x) for row in list(card.values()) + list(cpu.values()) for x in row):
+        errors.append(f"study: tables card {card} CPU {cpu}")
+    print(f"study ({outs['study'][3]:.1f} s on the card): precision | card accuracy, "
+          f"spikes/img, uJ | CPU accuracy, spikes/img, uJ")
+    for name in card:
+        print(f"  {name:>5} | {card[name]} | {cpu.get(name)}")
+    result.update(study_card=card, study_cpu=cpu, lm_statuses=statuses)
+    return result
 
 
 def main() -> None:
@@ -1585,6 +1975,17 @@ def main() -> None:
     if errors:
         fail("; ".join(errors))
 
+    # 8. precision, observability, the CLI and the study
+    t8 = time.perf_counter()
+    precision = check_precision_serving(
+        torch, cfg, init_vgg9(torch.Generator().manual_seed(0), cfg, "cpu"), errors)
+    precision["lm"] = check_lm_precision(torch, qwen.with_(n_layers=2), errors)
+    precision["entry_points"] = check_entry_points(errors)
+    precision["seconds"] = time.perf_counter() - t8
+    print(f"phase 8 precision: {len(errors)} errors in {precision['seconds']:.1f} s")
+    if errors:
+        fail("; ".join(errors))
+
     csrc = "src/repro_torch/kernels/{}/csrc/{}.cu"
     sources = {"spike_matmul_mapped": csrc.format("spike_conv", "spike_matmul_mapped"),
                "lif_epilogue_scan": csrc.format("lif_step", "lif_epilogue_scan"),
@@ -1600,10 +2001,12 @@ def main() -> None:
                 "lif_step": "src/repro/kernels/lif_step/lif_step.py:25",
                 "int4_matmul": "src/repro/kernels/int4_matmul/int4_matmul.py:47",
                 "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:71"}
-    # launches of each kernel in the run of its own main path: serving
-    # (phase 4) for the fused pipeline's kernels, the unfused pipeline
-    # (phase 5) for the two it alone runs
+    # launches of each kernel in the runs of its own main paths: serving
+    # (phase 4) and adaptive-precision serving (phase 8a) for the fused
+    # pipeline's kernels, the unfused pipeline (phase 5) for the two it
+    # alone runs
     main_runs = {k: [v["launches"] for v in served.values()]
+                 + [precision["modes"]["adaptive"]["launches"]]
                  for k in ("spike_matmul_mapped", "lif_epilogue_scan", "dense_conv_lif")}
     main_runs.update({k: [v["launches"] for v in unfused.values()]
                       for k in ("spike_matmul", "lif_step")})
@@ -1636,7 +2039,8 @@ def main() -> None:
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"device": kind, "nvidia_smi": smi_line, "sass": sass, "kernels": checked,
                    "launch_floor_ms": floor_ms,
-                   "serve": served, "unfused": unfused, "train": trained, "lm": lm}, f,
+                   "serve": served, "unfused": unfused, "train": trained, "lm": lm,
+                   "precision": precision}, f,
                   indent=1,
                   default=str)
     if any(math.isnan(k["ms"]) for k in kernels):

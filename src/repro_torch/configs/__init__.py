@@ -3,7 +3,7 @@ architectures (`base.ArchConfig`, `get_arch(name)` / `all_archs()`).
 
 Only the architectures whose block kinds the port runs are registered:
 qwen1.5-4b (``attn_mlp``). The JAX package's other nine arch configs come
-with their block kinds (ROADMAP, queue 1 item 7).
+with their block kinds (ROADMAP, queue 1 item 5).
 """
 from .base import ArchConfig, ShapeConfig, SHAPES, get_arch, all_archs, shape_applicable
 

@@ -9,18 +9,29 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --workload snn --requests 6 --int4
     PYTHONPATH=src python -m repro_torch.launch.serve --workload snn --device cpu --mixed-trace
 
+    # chunked prefill + latency SLOs (budgeted-session serving):
+    PYTHONPATH=src python -m repro_torch.launch.serve --workload lm \\
+        --prefill-chunk 8 --scheduler slo --slo-ms 3000
+
+    # adaptive-precision serving: fp32+int4 variants behind one engine, the
+    # controller picking per request from the sparsity scheduler's EWMAs,
+    # with the observability plane's metrics printed at exit:
+    PYTHONPATH=src python -m repro_torch.launch.serve --workload snn \\
+        --scheduler sparsity --mixed-trace --precision adaptive --metrics prom
+
 Runs on the card unless ``--device cpu`` is given; asking for the card
 without one raises. The LM is cut to ``--d-model`` / ``--n-layers`` /
 ``--vocab`` as the JAX package's CLI cuts it (0 keeps the architecture's
-own). The fleet, precision, data-shard, SLO and metrics flags of that CLI
-are not ported yet and exit with a message saying so.
+own). The fleet and data-shard flags of that CLI (`NOT_PORTED`) are not
+ported yet and exit with a message saying so.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import sys
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import torch
 
@@ -28,7 +39,7 @@ from ..configs import get_arch, vgg9_snn
 from ..device import resolve_device
 from ..models import transformer as tf
 from ..models.vgg9 import init_vgg9
-from ..serve.api import EngineConfig
+from ..serve.api import EngineConfig, Request, StepBudget
 from ..serve.core import EngineCore
 from ..serve.runners.lm import LMRunner
 from ..serve.runners.snn import SNNRunner
@@ -38,25 +49,56 @@ NOT_PORTED = (
     ("--replicas", lambda a: a.replicas != 1),
     ("--workers", lambda a: a.workers != 0),
     ("--fault-plan", lambda a: bool(a.fault_plan)),
-    ("--precision", lambda a: bool(a.precision)),
     ("--data-shard", lambda a: a.data_shard > 1),
-    ("--metrics", lambda a: bool(a.metrics)),
-    ("--slo-ms", lambda a: a.slo_ms > 0),
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class FlagRule:
+    """One CLI compatibility constraint: ``when(args)`` true => reject the
+    invocation with ``error``. `FLAG_RULES` below is the compatibility
+    policy as data, as in the JAX package's CLI."""
+
+    name: str
+    when: Callable
+    error: str
 
 
 def _sampling(a) -> bool:
     return a.temperature > 0 or a.top_k > 0 or a.top_p < 1.0
 
 
-#: the JAX CLI's rules (`FLAG_RULES`) that bind the flags ported here
+#: the JAX CLI's rules whose flags are all ported, with its names and
+#: messages; its rules on --replicas, --workers, --fault-plan and
+#: --data-shard join when those flags do
 FLAG_RULES = (
-    (lambda a: (a.speculate or _sampling(a)) and a.workload != "lm",
-     "--speculate/--temperature/--top-k/--top-p are LM-only"),
-    (lambda a: (a.speculate or _sampling(a)) and a.admission == "batch",
-     "--speculate and sampling need --admission continuous "
-     "(the run-to-completion batch path is greedy-only)"),
+    FlagRule("slo-needs-continuous",
+             lambda a: a.slo_ms > 0 and a.admission == "batch",
+             "--slo-ms requires --admission continuous "
+             "(deadlines are step-level; the batch path ignores them)"),
+    FlagRule("precision-vs-int4", lambda a: a.precision and a.int4,
+             "--int4 pins numerics at runner construction; with "
+             "--precision the engine holds both variants (use "
+             "--precision int4 for a pinned int4 fleet)"),
+    FlagRule("lm-only-knobs",
+             lambda a: (a.speculate or _sampling(a)) and a.workload != "lm",
+             "--speculate/--temperature/--top-k/--top-p are LM-only"),
+    FlagRule("sampling-needs-continuous",
+             lambda a: (a.speculate or _sampling(a))
+             and a.admission == "batch",
+             "--speculate and sampling need --admission continuous "
+             "(the run-to-completion batch path is greedy-only)"),
+    FlagRule("speculate-vs-precision",
+             lambda a: a.speculate and a.precision,
+             "--speculate drafts against one resident KV cache; the "
+             "--precision variant registry swaps runners per request "
+             "(drop one of the two)"),
 )
+
+
+def check_flags(args) -> List[FlagRule]:
+    """Every violated `FlagRule` for this namespace (empty = accepted)."""
+    return [rule for rule in FLAG_RULES if rule.when(args)]
 
 
 def reduce_cfg(cfg, args):
@@ -96,6 +138,15 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--seq", type=int, default=64, help="LM: KV cache length (max_seq)")
     ap.add_argument("--img-hw", type=int, default=0, help="SNN image size override")
     ap.add_argument("--int4", action="store_true", help="int4-weight numerics")
+    ap.add_argument("--precision", choices=("fp32", "int4", "adaptive"),
+                    default="",
+                    help="precision-controlled serving (serve.precision): "
+                         "both fp32 and int4 variants behind one engine. "
+                         "'fp32'/'int4' pin every unpinned request; "
+                         "'adaptive' picks per request from EWMA sparsity "
+                         "estimates, SLO slack and the accuracy budget. "
+                         "Pair with --scheduler sparsity to close the "
+                         "quantization->sparsity feedback loop online")
     ap.add_argument("--scheduler",
                     choices=("fifo", "sparsity", "slo", "slo:fifo", "slo:sparsity"),
                     default="fifo", help="batch-composition policy (serve.scheduler)")
@@ -105,6 +156,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--prefill-chunk", type=int, default=1,
                     help="LM continuous admission: prompt tokens a joining request "
                          "prefills per engine step (outputs are bit-identical)")
+    ap.add_argument("--slo-ms", type=float, default=0.0,
+                    help="LM: per-request latency SLO in milliseconds "
+                         "(wall clock); expired requests surface "
+                         "status='expired'. Pair with --scheduler slo")
     ap.add_argument("--speculate", type=int, default=0, metavar="K",
                     help="LM: draft up to K tokens per decode row (n-gram prompt "
                          "lookup) and verify them in one launch")
@@ -116,6 +171,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="LM: nucleus sampling mass (1.0 = all)")
     ap.add_argument("--mixed-trace", action="store_true",
                     help="SNN: alternate near-silent and dense requests")
+    ap.add_argument("--metrics", choices=("json", "prom"), default="",
+                    help="attach the observability plane (repro_torch.obs): "
+                         "per-request trace spans, typed metrics and a "
+                         "flight recorder on the engine, exported at exit "
+                         "as JSON or Prometheus text. Outputs stay "
+                         "bit-identical with it on or off")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the model runs (default: the card)")
@@ -123,25 +184,99 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--replicas", type=int, default=1, help="not ported yet")
     ap.add_argument("--workers", type=int, default=0, help="not ported yet")
     ap.add_argument("--fault-plan", default="", help="not ported yet")
-    ap.add_argument("--precision", default="", help="not ported yet")
     ap.add_argument("--data-shard", type=int, default=0, help="not ported yet")
-    ap.add_argument("--metrics", default="", help="not ported yet")
-    ap.add_argument("--slo-ms", type=float, default=0.0, help="not ported yet")
     return ap.parse_args(argv)
 
 
 def engine_config(args) -> EngineConfig:
     return EngineConfig(slots=args.slots, admission=args.admission,
-                        scheduler=args.scheduler, prefill_chunk=args.prefill_chunk)
+                        scheduler=args.scheduler, prefill_chunk=args.prefill_chunk,
+                        precision=args.precision)
+
+
+def make_obs(args):
+    """One `Observability` bundle when --metrics asked for one, else None
+    (detached serving is the default and is bit-identical by contract)."""
+    if not args.metrics:
+        return None
+    from ..obs import Observability
+    return Observability()
+
+
+def precision_engine(runner_factory, pricer, args):
+    """Precision-capable single engine: fp32+int4 variant registry behind a
+    `PrecisionRunner`, pre-warmed, with the controller bound to the sparsity
+    scheduler's prediction/observation stream when one is in play."""
+    from ..serve.precision import (PrecisionController, PrecisionRunner,
+                                   bind_controller)
+    from ..serve.scheduler import SparsityAwareScheduler, make_scheduler
+
+    registry = runner_factory()
+    controller = PrecisionController(
+        pricer=pricer,
+        slo_tight_s=args.slo_ms / 1000.0 if args.slo_ms > 0 else None)
+    runner = PrecisionRunner(registry, controller, mode=args.precision)
+    registry.prewarm(args.slots)
+    scheduler = make_scheduler(args.scheduler)
+    inner = getattr(scheduler, "inner", scheduler)
+    if isinstance(inner, SparsityAwareScheduler):
+        bind_controller(inner, controller)
+    core = EngineCore(runner, engine_config(args), scheduler=scheduler,
+                      obs=make_obs(args))
+    return core, controller
+
+
+def print_observability(core, fmt: str) -> None:
+    """--metrics export: the run's metrics snapshot (JSON or Prometheus
+    text) plus a one-line trace / flight-recorder summary of the engine's
+    bundle."""
+    from ..obs import to_prometheus
+    if core.obs is None:
+        return
+    tel = core.obs.snapshot()
+    snap = tel.get("metrics", {})
+    if fmt == "prom":
+        print(to_prometheus(snap), end="")
+    else:
+        print("METRICS_JSON " + json.dumps(snap, sort_keys=True))
+    print(f"trace: {len(tel.get('trace', []))} spans; "
+          f"recorder dumps: {len(tel.get('dumps', []))}")
+
+
+def warm_slo(runner, prompts, args) -> None:
+    """Wall-clock SLOs start at submit(): run this trace once, then every
+    pow2 chunk width up to the SLO scheduler's boost cap, so that the
+    kernels' build and the first library calls on the card land before any
+    deadline (the budget split can boost a prefill chunk past
+    --prefill-chunk mid-deadline)."""
+    from ..serve.scheduler import SLOScheduler
+    warm = EngineCore(runner, engine_config(args))
+    for p in prompts:
+        warm.submit(p, max_new_tokens=args.tokens)
+    warm.run_until_complete()
+    w, cap = 2, SLOScheduler.DEFAULT_BOOST_CAP
+    while w <= cap and w // 2 < args.seq - 2:
+        plen = min(w + 1, args.seq - 2)
+        sess = runner.open_session(args.slots)
+        sess.admit(0, Request(-1, [1] * plen, {"max_new_tokens": 1}))
+        sess.step(StepBudget(chunk=w))
+        w *= 2
 
 
 def serve_lm(args) -> None:
     device = resolve_device(args.device)
     cfg = reduce_cfg(get_arch(args.arch), args).with_(frontend="", n_frontend_tokens=0)
     params = tf.init_params(torch.Generator(device=device).manual_seed(args.seed), cfg, device)
-    runner = LMRunner(cfg, params, max_seq=args.seq, quant_bits=4 if args.int4 else 0,
-                      speculate_k=args.speculate, device=device)
-    core = EngineCore(runner, engine_config(args))
+    controller, runner = None, None
+    if args.precision:
+        from ..serve.precision import make_lm_variants
+        core, controller = precision_engine(
+            lambda: make_lm_variants(cfg, params, max_seq=args.seq, device=device),
+            None, args)
+    else:
+        runner = LMRunner(cfg, params, max_seq=args.seq, quant_bits=4 if args.int4 else 0,
+                          speculate_k=args.speculate, device=device)
+        core = EngineCore(runner, engine_config(args), obs=make_obs(args))
 
     sampling_opts = {}
     if _sampling(args):
@@ -152,15 +287,21 @@ def serve_lm(args) -> None:
     for _ in range(args.requests):
         length = int(torch.randint(1, 6, (), generator=gen))
         prompts.append(torch.randint(1, cfg.vocab, (length,), generator=gen).tolist())
+    deadline = args.slo_ms / 1000.0 if args.slo_ms > 0 else None
+    if deadline is not None and runner is not None:
+        # (the --precision path warms both variants in VariantRegistry.prewarm)
+        warm_slo(runner, prompts, args)
     # per-request seed: each request gets its own stream, deterministic
     # across runs for a fixed --seed
-    ids = [core.submit(p, max_new_tokens=args.tokens,
+    ids = [core.submit(p, max_new_tokens=args.tokens, deadline_s=deadline,
                        **(dict(sampling_opts, seed=args.seed + i) if sampling_opts else {}))
            for i, p in enumerate(prompts)]
     results = core.run_until_complete()
     for i, rid in enumerate(ids):
         res = results[rid]
-        print(f"req{rid}: prompt={prompts[i]} -> {res.outputs[len(prompts[i]):]} "
+        # expired-in-queue requests never produced outputs
+        new = res.outputs[len(prompts[i]):] if res.outputs is not None else None
+        print(f"req{rid}: prompt={prompts[i]} -> {new} "
               f"status={res.status} stats={dict(res.stats)}")
     stats = core.stats()
     if args.speculate > 0 and stats.get("drafted_tokens"):
@@ -169,6 +310,10 @@ def serve_lm(args) -> None:
               f"accept_rate={stats['accept_rate']:.3f} "
               f"goodput={stats['goodput_decode_tok_per_step']:.2f} tok/step")
     print(f"engine: {stats}")
+    if controller is not None:
+        print(f"precision controller: {controller.summary()}")
+    if args.metrics:
+        print_observability(core, args.metrics)
 
 
 def serve_snn(args) -> None:
@@ -177,19 +322,32 @@ def serve_snn(args) -> None:
     if args.img_hw:
         cfg = dataclasses.replace(cfg, img_hw=args.img_hw)
     params = init_vgg9(torch.Generator().manual_seed(args.seed), cfg, device)
-    core = EngineCore(SNNRunner(cfg, params, device=device), engine_config(args))
+    controller = None
+    if args.precision:
+        from ..serve.precision import make_snn_pricer, make_snn_variants
+        core, controller = precision_engine(
+            lambda: make_snn_variants(cfg, params, device=device),
+            make_snn_pricer(cfg), args)
+    else:
+        core = EngineCore(SNNRunner(cfg, params, device=device), engine_config(args),
+                          obs=make_obs(args))
 
     gen = torch.Generator().manual_seed(args.seed + 1)
     shape = (cfg.img_hw, cfg.img_hw, cfg.in_ch)
     ids = []
     for i in range(args.requests):
         img = torch.rand(shape, generator=gen)
+        opts = {}
+        if args.precision and i % 3 == 0:
+            # exercise the never-switch invariant from the CLI: every third
+            # request is accuracy-pinned to fp32 regardless of controller
+            opts["pin_precision"] = "fp32"
         if args.mixed_trace and i % 2 == 0:
             # alternate near-silent requests: the mixed-sparsity trace the
             # sparsity-aware scheduler separates from the dense stream
-            ids.append(core.submit(img * 0.02, source="sparse"))
+            ids.append(core.submit(img * 0.02, source="sparse", **opts))
         else:
-            ids.append(core.submit(img, source="dense"))
+            ids.append(core.submit(img, source="dense", **opts))
     results = core.run_until_complete()
     for rid in ids:
         res = results[rid]
@@ -199,8 +357,13 @@ def serve_snn(args) -> None:
               f"skip={skip} precision={res.stats['precision']} "
               f"energy={res.stats['energy_j']:.3e} J "
               f"served={res.stats['served_energy_j']:.3e} J "
-              f"(analytical {res.stats['served_energy_analytical_j']:.3e} J)")
+              f"(analytical {res.stats['served_energy_analytical_j']:.3e} J) "
+              f"status={res.status}")
     print(f"engine: {core.stats()}")
+    if controller is not None:
+        print(f"precision controller: {controller.summary()}")
+    if args.metrics:
+        print_observability(core, args.metrics)
     print(f"admissions: {core.admission_log}")
 
 
@@ -210,9 +373,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     if refused:
         sys.exit(f"not ported yet: {', '.join(refused)} (the PyTorch port "
                  "serves the LM and SNN workloads on one engine)")
-    for broken, message in FLAG_RULES:
-        if broken(args):
-            sys.exit(message)
+    for rule in check_flags(args):
+        sys.exit(rule.error)
     if args.workload == "snn":
         serve_snn(args)
     else:

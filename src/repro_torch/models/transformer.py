@@ -11,9 +11,9 @@ Block kinds ported: ``attn_mlp`` (GQA attention + MLP: the dense
 transformers) and ``local_attn`` (the same with a sliding window). The
 others (``attn_moe``, ``rglru``, ``mlstm``, ``slstm``) and the vision/audio
 frontends raise `NotImplementedError` until their modules are ported
-(ROADMAP, queue 1 item 7). Without a device mesh the JAX package's
+(ROADMAP, queue 1 item 5). Without a device mesh the JAX package's
 sharding hooks (`_vocab_shard`, `_seq_shard`, `shard_cotangents`) are
-identities, so the port has none (distribution: ROADMAP, queue 1 item 11).
+identities, so the port has none (distribution: ROADMAP, queue 1 item 8).
 
 Serving entry points: `prefill_step`, `init_cache`, `reset_cache_rows`,
 `decode_step`, `decode_chunk` and `rollback_cache_rows`. Caches are
@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
+from ..device import resolve_device
 from .attention import attention_block, attention_decode, attn_init, init_kv_cache
 from .layers import dense_init, embed_init, mlp_apply, mlp_init, rmsnorm, rmsnorm_init
 
@@ -44,7 +45,7 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP, queue 1 item 7); "
+        f"{what} is not ported to PyTorch yet (ROADMAP, queue 1 item 5); "
         f"the port runs the block kinds {ATTN_KINDS}")
 
 
@@ -52,11 +53,12 @@ def _not_ported(what: str) -> NotImplementedError:
 # Parameter init
 # ===========================================================================
 
-def init_block(gen: torch.Generator, cfg: ArchConfig, kind: str, device="cpu",
+def init_block(gen: torch.Generator, cfg: ArchConfig, kind: str, device="cuda",
                lead: Tuple[int, ...] = ()) -> Dict[str, Any]:
     """One block's parameters, or ``lead`` stacked blocks drawn at once."""
     if kind not in ATTN_KINDS:
         raise _not_ported(f"block kind {kind!r}")
+    device = resolve_device(device)
     dt, d = _dtype(cfg), cfg.d_model
     return {
         "norm1": rmsnorm_init(d, dt, device, lead),
@@ -67,11 +69,12 @@ def init_block(gen: torch.Generator, cfg: ArchConfig, kind: str, device="cpu",
     }
 
 
-def init_params(gen: torch.Generator, cfg: ArchConfig, device="cpu") -> Dict[str, Any]:
+def init_params(gen: torch.Generator, cfg: ArchConfig, device="cuda") -> Dict[str, Any]:
     """Random parameters from ``gen`` (a generator on ``device``): the
     JAX package's tree and shapes, other numbers (torch's generator)."""
     if cfg.frontend:
         raise _not_ported(f"the {cfg.frontend!r} frontend")
+    device = resolve_device(device)
     dt = _dtype(cfg)
     params: Dict[str, Any] = {
         "embed": {"w_tok": embed_init(gen, cfg.vocab, cfg.d_model, dt, device)},
@@ -85,9 +88,10 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, device="cpu") -> Dict[str
     return params
 
 
-def params_from_numpy(tree, device="cpu"):
+def params_from_numpy(tree, device="cuda"):
     """A JAX parameter (or cache) tree, as numpy arrays, to torch tensors on
     ``device`` under the same keys (tuples stay tuples)."""
+    device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
@@ -168,7 +172,8 @@ def _init_block_cache(kind: str, cfg: ArchConfig, batch: int, seq_len: int, dt, 
     raise _not_ported(f"block kind {kind!r}")
 
 
-def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device="cpu") -> Dict[str, Any]:
+def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device="cuda") -> Dict[str, Any]:
+    device = resolve_device(device)
     dt = _dtype(cfg)
     periods = {f"slot{si}": _init_block_cache(kind, cfg, batch, seq_len, dt, device,
                                               (cfg.n_periods,))

@@ -202,10 +202,10 @@ class EngineCore:
         #: the last `StepReport` a continuous-admission step produced —
         #: supervision surface for `serve.router.Router`'s health probes.
         self.last_report: Optional[Any] = None
-        #: optional `repro.obs.Observability` bundle. Hooks only receive
+        #: optional `repro_torch.obs.Observability` bundle. Hooks only receive
         #: values the engine computed anyway (clock readings, reports,
         #: results) — attaching one is bit-identical to running without
-        #: (the no-perturbation contract `tests/test_obs.py` asserts).
+        #: (the no-perturbation contract `tests/test_torch_obs.py` asserts).
         self.obs = obs
         if obs is not None:
             obs.attach_engine(self)

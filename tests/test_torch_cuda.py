@@ -22,7 +22,12 @@ chosen K splits bit-identical;
 flash attention within 5e-5 in fp32 (5e-5 of the largest output where
 each head's V is offset by 64 * head) and within one bf16 step of the
 largest output in bf16, two calls bit-identical; LM logits on the card
-within 1e-3 of the CPU's.
+within 1e-3 of the CPU's. Adaptive-precision serving of TINY on the card:
+each request's logits bit-identical to the single-precision engine's at
+the precision it was served, pinned requests at fp32, the served
+precisions equal to the CPU's, one fused pipeline's launches per occupied
+precision per engine step, and the same results with the observability
+plane attached.
 """
 import numpy as np
 import pytest
@@ -39,6 +44,12 @@ from repro_torch.kernels.lif_step import ops as lif_ops
 from repro_torch.kernels.spike_conv import ops as sc_ops
 from repro_torch.models import attention, vgg9
 from repro_torch.models import transformer as tf
+from repro_torch.obs import Observability
+from repro_torch.serve.api import EngineConfig
+from repro_torch.serve.core import EngineCore
+from repro_torch.serve.precision import (PrecisionController, PrecisionRunner,
+                                         bind_controller, make_snn_pricer, make_snn_variants)
+from repro_torch.serve.scheduler import make_scheduler
 
 BETA, THETA = 0.15, 0.5
 
@@ -520,7 +531,7 @@ def test_lm_decode_chunk_matches_cpu(cuda):
     cfg = ArchConfig(name="t", family="dense", n_layers=2, d_model=256, n_heads=4,
                      n_kv_heads=2, head_dim=64, d_ff=512, vocab=1000, qkv_bias=True,
                      dtype="float32", remat="none")
-    params = tf.init_params(torch.Generator().manual_seed(0), cfg)
+    params = tf.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
     gpu = {"embed": {"w_tok": params["embed"]["w_tok"].to(cuda)},
            "final_norm": params["final_norm"].to(cuda),
            "lm_head": {"w": params["lm_head"]["w"].to(cuda)},
@@ -530,9 +541,88 @@ def test_lm_decode_chunk_matches_cpu(cuda):
            "tail": ()}
     toks = torch.from_numpy(np.random.default_rng(37).integers(0, 1000, (3, 6)))
     pos0, take = torch.tensor([0, 2, 5]), torch.tensor([6, 4, 1])
-    _, ref, _ = tf.decode_chunk(params, tf.init_cache(cfg, 3, 16), toks, pos0, take, cfg)
+    _, ref, _ = tf.decode_chunk(params, tf.init_cache(cfg, 3, 16, "cpu"), toks, pos0, take, cfg)
     _, out, _ = tf.decode_chunk(gpu, tf.init_cache(cfg, 3, 16, cuda), toks.to(cuda),
                                 pos0.to(cuda), take.to(cuda), cfg)
     for row in range(3):
         cols = slice(0, int(take[row]))
         assert (out[row, cols].cpu() - ref[row, cols]).abs().max().item() <= 1e-3
+
+
+def _precision_trace(cfg, n=8):
+    """Images from a seed, even ids near-silent, every third pinned to fp32."""
+    gen = torch.Generator().manual_seed(3)
+    trace = []
+    for i in range(n):
+        img = torch.rand((cfg.img_hw, cfg.img_hw, cfg.in_ch), generator=gen)
+        opts = {"source": "sparse" if i % 2 == 0 else "dense"}
+        if i % 3 == 0:
+            opts["pin_precision"] = "fp32"
+        trace.append((img * 0.02 if i % 2 == 0 else img, opts))
+    return trace
+
+
+def _serve_adaptive(registry, cfg, trace, obs=None):
+    controller = PrecisionController(pricer=make_snn_pricer(cfg), dense_threshold=0.8)
+    sched = make_scheduler("sparsity")
+    bind_controller(sched, controller)
+    engine = EngineCore(PrecisionRunner(registry, controller),
+                        EngineConfig(slots=2, scheduler="sparsity", precision="adaptive"),
+                        scheduler=sched, obs=obs)
+    ids = [engine.submit(img, **opts) for img, opts in trace]
+    res = engine.run_until_complete()
+    return [res[i] for i in ids], engine
+
+
+@pytest.mark.cuda
+def test_adaptive_serving_matches_single_precision_engines(cuda):
+    cfg = vgg9_snn.TINY
+    params = vgg9.init_vgg9(torch.Generator().manual_seed(0), cfg, "cpu")
+    gpu_params = {k: {kk: v.to(cuda) for kk, v in leaf.items()} for k, leaf in params.items()}
+    registry = make_snn_variants(cfg, gpu_params, device=cuda)
+    registry.prewarm(2)
+    trace = _precision_trace(cfg)
+    reset_cuda_launches()
+    res, engine = _serve_adaptive(registry, cfg, trace)
+    torch.cuda.synchronize()
+    launches = dict(CUDA_LAUNCHES)
+    served = [r.stats["precision"] for r in res]
+    assert set(served) == {"fp32", "int4"}
+    assert all(served[i] == "fp32" for i, (_, o) in enumerate(trace) if "pin_precision" in o)
+    by_id = {r.request_id: p for r, p in zip(res, served)}
+    occupied = sum(len({by_id[i] for i in ids}) for _, ids in engine.admission_log)
+    assert launches == {"dense_conv_lif": occupied, "spike_matmul_mapped": 3 * occupied,
+                        "lif_epilogue_scan": 5 * occupied, "spike_matmul": 0, "lif_step": 0,
+                        "int4_matmul": 0, "flash_attention": 0}
+    for prec in registry.precisions:
+        single = EngineCore(registry.runner(prec), EngineConfig(slots=2))
+        ids = [single.submit(img, **opts) for img, opts in trace]
+        ref = single.run_until_complete()
+        for i, r in enumerate(res):
+            if served[i] == prec:
+                assert np.array_equal(r.outputs, ref[ids[i]].outputs), (prec, i)
+    cpu = make_snn_variants(cfg, params, device="cpu")
+    cpu_res, _ = _serve_adaptive(cpu, cfg, trace)
+    assert [r.stats["precision"] for r in cpu_res] == served
+    # at most one output spike flipped near theta (fp32 sums in other orders)
+    one_spike = 1.0 / (cfg.timesteps * (cfg.population // cfg.num_classes))
+    assert max(np.abs(a.outputs - b.outputs).max() for a, b in zip(res, cpu_res)) \
+        <= one_spike + 1e-6
+
+
+@pytest.mark.cuda
+def test_adaptive_serving_with_obs_attached_is_bit_identical(cuda):
+    cfg = vgg9_snn.TINY
+    params = vgg9.init_vgg9(torch.Generator().manual_seed(0), cfg, cuda)
+    registry = make_snn_variants(cfg, params, device=cuda)
+    trace = _precision_trace(cfg)
+    plain, engine = _serve_adaptive(registry, cfg, trace)
+    bundle = Observability()
+    observed, engine_obs = _serve_adaptive(registry, cfg, trace, obs=bundle)
+    assert engine_obs.admission_log == engine.admission_log
+    for a, b in zip(observed, plain):
+        assert np.array_equal(a.outputs, b.outputs)
+        assert dict(a.stats) == dict(b.stats)
+    snap = bundle.metrics.snapshot()
+    assert snap["precision_decisions"]["value"] == len(trace)
+    assert snap["precision_served_energy_eq3_j"]["value"] > 0

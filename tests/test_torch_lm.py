@@ -86,7 +86,7 @@ def model(request):
     kw = CFGS[request.param]
     jp = _jax_params(kw)
     return (jax_base.ArchConfig(**kw), ArchConfig(**kw), jp,
-            tf.params_from_numpy(jax.tree.map(np.asarray, jp)))
+            tf.params_from_numpy(jax.tree.map(np.asarray, jp), "cpu"))
 
 
 def _close(a, b, tol=LOGIT_TOL):
@@ -344,7 +344,7 @@ def test_init_params_tree_matches_reference():
     kw = dict(QWEN, n_layers=3)
     ref = jax.eval_shape(lambda: jax_tf.init_params(jax.random.PRNGKey(0),
                                                     jax_base.ArchConfig(**kw)))
-    ours = tf.init_params(torch.Generator().manual_seed(0), ArchConfig(**kw))
+    ours = tf.init_params(torch.Generator().manual_seed(0), ArchConfig(**kw), "cpu")
     ref_leaves = jax.tree_util.tree_flatten_with_path(ref)[0]
     count = lambda t: sum(map(count, t.values())) if isinstance(t, dict) else \
         sum(map(count, t)) if isinstance(t, tuple) else 1
@@ -370,7 +370,7 @@ def test_forward_matches_reference(model):
 def test_decode_step_matches_reference(model):
     jcfg, cfg, jp, tp = model
     toks = _rng(19).integers(0, cfg.vocab, size=(3, 5))
-    jc, tc = jax_tf.init_cache(jcfg, 3, SEQ), tf.init_cache(cfg, 3, SEQ)
+    jc, tc = jax_tf.init_cache(jcfg, 3, SEQ), tf.init_cache(cfg, 3, SEQ, "cpu")
     for t in range(toks.shape[1]):
         pos = np.array([t, t + 2, 2 * t], np.int32)
         jl, jc = jax_tf.decode_step(jp, jc, {"tokens": jnp.asarray(toks[:, t:t + 1], jnp.int32)},
@@ -393,7 +393,7 @@ def test_decode_chunk_matches_reference_decode_chunk(model):
     jpk, jlg, jc = jax_tf.decode_chunk(jp, jax_tf.init_cache(jcfg, 3, SEQ),
                                        jnp.asarray(toks, jnp.int32), jnp.asarray(pos0),
                                        jnp.asarray(take), jcfg, active=jnp.asarray(active))
-    pk, lg, tc = tf.decode_chunk(tp, tf.init_cache(cfg, 3, SEQ), torch.from_numpy(toks),
+    pk, lg, tc = tf.decode_chunk(tp, tf.init_cache(cfg, 3, SEQ, "cpu"), torch.from_numpy(toks),
                                  torch.from_numpy(pos0), torch.from_numpy(take), cfg,
                                  active=torch.from_numpy(active))
     assert pk.shape == (3, 6) and lg.shape == (3, 6, cfg.vocab)
@@ -410,9 +410,9 @@ def test_decode_chunk_is_sequential_steps_bit_for_bit(model):
     _, cfg, _, tp = model
     toks = torch.from_numpy(_rng(21).integers(1, cfg.vocab, size=(3, 5)))
     pos0, take = torch.tensor([1, 0, 3]), torch.tensor([5, 2, 4])
-    picks, logits, chunk_cache = tf.decode_chunk(tp, tf.init_cache(cfg, 3, SEQ), toks, pos0,
+    picks, logits, chunk_cache = tf.decode_chunk(tp, tf.init_cache(cfg, 3, SEQ, "cpu"), toks, pos0,
                                                  take, cfg)
-    cache = tf.init_cache(cfg, 3, SEQ)
+    cache = tf.init_cache(cfg, 3, SEQ, "cpu")
     for t in range(5):
         step, cache = tf.decode_step(tp, cache, {"tokens": toks[:, t:t + 1]}, pos0 + t, cfg,
                                      active=t < take)
@@ -424,8 +424,8 @@ def test_decode_chunk_is_sequential_steps_bit_for_bit(model):
 
 def test_decode_chunk_masked_columns_past_the_cache_write_nothing():
     cfg = ArchConfig(**dict(GQA, n_layers=1))
-    tp = tf.init_params(torch.Generator().manual_seed(1), cfg)
-    cache = tf.init_cache(cfg, 2, 8)
+    tp = tf.init_params(torch.Generator().manual_seed(1), cfg, "cpu")
+    cache = tf.init_cache(cfg, 2, 8, "cpu")
     toks = torch.ones((2, 4), dtype=torch.long)
     # row 0 consumes positions 6 and 7; its masked columns reach 8 and 9
     tf.decode_chunk(tp, cache, toks, torch.tensor([6, 0]), torch.tensor([2, 4]), cfg)
@@ -474,6 +474,6 @@ def test_quantized_lm_params_leaf_set_and_values_exact(model):
 def test_other_block_kinds_name_the_roadmap():
     cfg = ArchConfig(**dict(GQA, pattern=("rglru",)))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tf.init_params(torch.Generator().manual_seed(0), cfg)
+        tf.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tf.init_cache(cfg, 1, 8)
+        tf.init_cache(cfg, 1, 8, "cpu")

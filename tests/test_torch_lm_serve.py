@@ -53,7 +53,7 @@ def weights():
     out = {}
     for kw in (QWEN, GQA):
         jp = jax_tf.init_params(jax.random.PRNGKey(0), jax_base.ArchConfig(**kw))
-        out[kw["name"]] = (jp, tf.params_from_numpy(jax.tree.map(np.asarray, jp)))
+        out[kw["name"]] = (jp, tf.params_from_numpy(jax.tree.map(np.asarray, jp), "cpu"))
     return out
 
 

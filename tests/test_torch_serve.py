@@ -113,7 +113,9 @@ def test_import_leaves_jax_and_reference_out():
             " 'repro_torch.core.coding', 'repro_torch.data.synthetic',"
             " 'repro_torch.serve.runners.lm', 'repro_torch.launch.serve_lm_w4',"
             " 'repro_torch.kernels.int4_matmul.ops',"
-            " 'repro_torch.kernels.flash_attention.ops'} <= set(names)\n"
+            " 'repro_torch.kernels.flash_attention.ops', 'repro_torch.obs',"
+            " 'repro_torch.serve.precision', 'repro_torch.launch.quant_sparsity_study',"
+            " 'repro_torch.launch.quickstart'} <= set(names)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'repro' or m.startswith('repro.'))\n"
             "assert not bad, bad\n"
@@ -142,10 +144,33 @@ def test_cli_serves_on_cpu(capsys):
     assert "'requests_done': 3" in out
 
 
-@pytest.mark.parametrize("flags", [["--slo-ms", "100"], ["--workers", "2"],
-                                   ["--replicas", "2"], ["--precision", "adaptive"],
-                                   ["--metrics", "json"], ["--data-shard", "2"],
-                                   ["--fault-plan", "0=wedge@4"]])
+@pytest.mark.parametrize("flags", [["--workers", "2"], ["--replicas", "2"],
+                                   ["--data-shard", "2"], ["--fault-plan", "0=wedge@4"]])
 def test_cli_refuses_unported_flags(flags):
     with pytest.raises(SystemExit, match="not ported yet"):
         cli.main(flags + ["--device", "cpu"])
+
+
+@pytest.mark.parametrize("flags,expect", [
+    (["--workload", "lm", "--scheduler", "slo", "--slo-ms", "3000", "--prefill-chunk", "4",
+      "--tokens", "4"], "'scheduler': 'slo'"),
+    (["--workload", "snn", "--scheduler", "sparsity", "--mixed-trace", "--precision",
+      "adaptive", "--metrics", "prom", "--requests", "6"], "# TYPE precision_served_int4 gauge"),
+    (["--workload", "snn", "--scheduler", "sparsity", "--mixed-trace", "--precision",
+      "adaptive", "--metrics", "json", "--requests", "6"], "METRICS_JSON {"),
+], ids=["slo-ms", "precision", "metrics"])
+def test_cli_serves_ported_flags(capsys, flags, expect):
+    cli.main(flags + ["--device", "cpu"])
+    out = capsys.readouterr().out
+    reqs = [line for line in out.splitlines() if line.startswith("req")]
+    n = int(flags[flags.index("--requests") + 1]) if "--requests" in flags else 4
+    assert len(reqs) == n
+    assert all("status=ok" in line for line in reqs)
+    assert expect in out
+    if "--precision" in flags:
+        assert "precision controller: {'decisions': 6" in out
+        # every third request is pinned to fp32
+        assert all("precision=fp32" in reqs[i] for i in (0, 3))
+        assert {"precision=fp32", "precision=int4"} <= {
+            w for line in reqs for w in line.split() if w.startswith("precision=")}
+        assert "trace: " in out
