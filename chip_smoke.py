@@ -40,8 +40,10 @@ Run from the root of a checkout. Phases, one line or block each:
              EngineCore + LMRunner, 4 slots, prefill chunk 8, speculation
              k=4, 8 requests (a repetitive, a sampled and an empty prompt
              among them): budgets, vocab range, speculative = plain and
-             batch = solo streams, host ms per engine step and per decode
-             step against the step's bound, device busy share; (b) at full
+             batch = solo streams, host ms per engine step; in fp32 only
+             (int4's fake-quant view does the same work), host ms per
+             decode step against the step's bound and the device busy
+             share; (b) at full
              width and depth 2, `decode_chunk` logits on the card against
              the CPU and the same requests served on both; (c)
              `launch/serve_lm_w4.py --full`, the int4 matmul's main path;
@@ -71,7 +73,25 @@ Run from the root of a checkout. Phases, one line or block each:
              exit 0: `launch.serve` SNN with `--precision adaptive --metrics
              prom`, LM with `--scheduler slo --slo-ms 3000`, and
              `launch.quant_sparsity_study` on the card beside its CPU table
-             (every number finite).
+             (every number finite);
+9. family  — the rest of the LM family: (a) granite-moe-3b-a800m at full
+             width and depth (32 layers, 40 experts padded to 48, top-8,
+             14.8 GiB fp32) served as 7a serves qwen, fp32 and int4, with
+             the decode step's bound over every expert and over the routed
+             ones; (b) recurrentgemma-2b (26 layers, the 2-layer RG-LRU
+             tail, local attention with window 2048) and xlstm-125m at full
+             width and depth, fp32, 6 requests on 4 slots (two admitted into
+             freed slots, which must equal their solo streams), speculation
+             refused with the reference's message; (c) granite-moe (2
+             periods), recurrentgemma (a period and the tail), xlstm (a
+             period), phi-3-vision and musicgen (2 periods, synthesized
+             frontend embeddings) at full width, the card against the CPU:
+             `decode_chunk` and `forward` logits within 1e-3, and no token
+             routed to another expert set where the CPU's k-th/(k+1)-th
+             router-logit gap exceeds 1e-4; (d) `launch/serve_lm_w4.py
+             --arch A --full` for the nine archs other than qwen, each one
+             launch of the int4 matmul at x [4, d_model], held against its
+             plain version, each model freed before the next loads.
 
 Phase 3 holds `spike_matmul_mapped` at spike densities 0.1, 0.33 and 1.0:
 within 1e-4 of the plain product, bit for bit the plain k-ascending sum
@@ -92,7 +112,8 @@ version (k ascending, separate roundings), and a `launch floor` line gives
 the `graph_ms` of the LIF epilogue on a [2, 1, 8] operand (one graph launch
 with next to no work). It also
 holds `int4_matmul` at qwen1.5-4b's projection shapes (decode M = 4,
-prefill M = 512, the LM head, the example's shape) with fp32 x, and with
+prefill M = 512, the LM head, the example's shape) and at phase 9d's
+shapes (M = 4, N = 256, K = each other arch's d_model) with fp32 x, and with
 bf16 x at the prefill shapes and the LM head: within 1e-4 of the plain
 version, a row's result equal to the M = 1 call's; each row prints the
 path (TMA or ragged), token width, warpgroups, tiles, stages, K's splits,
@@ -1167,8 +1188,10 @@ def lm_serve(torch, runner, prompts, opts, device, profile_at=None, profile_step
     """Serve the trace through one EngineCore; returns (results in order,
     host ms of each unprofiled step (synchronized), profile or None). With
     ``profile_at``, steps profile_at .. profile_at + profile_steps - 1 run
-    under one torch.profiler window: (kernel ms, wall ms, steps, the top
-    kernels as (name, ms per step, launches per step))."""
+    under one torch.profiler window that traces the device only (tracing
+    the host's ~4,000 ops per decode step too cost a minute per window to
+    collect): (kernel ms, wall ms, steps, the top kernels as (name, ms per
+    step, launches per step))."""
     from repro_torch.serve.api import EngineConfig
     from repro_torch.serve.core import EngineCore
     core = EngineCore(runner, EngineConfig(slots=LM_SLOTS, prefill_chunk=LM_CHUNK))
@@ -1177,7 +1200,7 @@ def lm_serve(torch, runner, prompts, opts, device, profile_at=None, profile_step
     while core.pending() or core.in_flight():
         if i == profile_at:
             from torch.profiler import ProfilerActivity, profile
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as trace:
+            with profile(activities=[ProfilerActivity.CUDA]) as trace:
                 t0 = time.perf_counter()
                 for _ in range(profile_steps):
                     core.step()
@@ -1202,89 +1225,151 @@ def lm_serve(torch, runner, prompts, opts, device, profile_at=None, profile_step
     return [results[r] for r in ids], times, prof
 
 
-def decode_bound_ms(torch, params, cache) -> float:
-    """The least time of one decode step on 4 slots: every weight it reads
-    once (all but the embedding table, of which it gathers 4 rows) plus the
-    whole KV cache (attention scores every max_seq slot), at 3.35 TB/s."""
-    def nbytes(tree):
-        if isinstance(tree, dict):
-            return sum(nbytes(v) for v in tree.values())
-        if isinstance(tree, tuple):
-            return sum(nbytes(v) for v in tree)
-        return tree.numel() * tree.element_size()
-    moved = nbytes({k: v for k, v in params.items() if k != "embed"}) + nbytes(cache)
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, tuple):
+        return sum(tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def decode_bound_ms(torch, cfg, params, cache) -> float:
+    """The least time of one decode step on the cache's slots: every weight
+    it reads once (the embedding table only where the LM head is tied to
+    it, else the 4 rows it gathers are left out; every expert, padded ones
+    included, as the reference's formulation multiplies them all), the
+    whole KV cache (attention scores every slot) and the recurrent state
+    read and written once, at 3.35 TB/s."""
+    weights = {k: v for k, v in params.items() if k != "embed" or cfg.tie_embeddings}
+    kv = recurrent = 0
+    for blk in list(cache["periods"].values()) + list(cache["tail"]):
+        for key, leaf in blk.items():
+            if key in ("k", "v"):
+                kv += tree_bytes(leaf)
+            else:
+                recurrent += tree_bytes(leaf)
+    moved = tree_bytes(weights) + kv + 2 * recurrent
     return moved / HBM_BYTES_PER_S * 1e3
 
 
-def check_lm_serving(torch, cfg, device, errors):
-    """Phase 7a: full-width qwen served in fp32 and int4 on ``device``."""
+def routed_bound_ms(torch, cfg, params, cache, step) -> float:
+    """`decode_bound_ms` with each MoE layer's experts cut to the ones that
+    ``step()`` (one decode step) routes a row to."""
+    with Routes() as routes:
+        step()
+    routed = [int(torch.unique(idx).numel()) for _, idx in routes.calls]
+    experts = [blk["moe"]["experts"] for blk in list(params["periods"].values())
+               + list(params["tail"]) if "moe" in blk]
+    all_experts = sum(tree_bytes(e) for e in experts)
+    # one call per MoE layer; every layer holds the same expert shapes
+    per_expert = all_experts / (len(routed) * experts[0]["w_in"].shape[-3])
+    unrouted = all_experts - per_expert * sum(routed)
+    return decode_bound_ms(torch, cfg, params, cache) - unrouted / HBM_BYTES_PER_S * 1e3
+
+
+def check_lm_serving(torch, cfg, device, errors, trace=None, speculate=LM_SPECULATE,
+                     solo=(6, 1), precisions=(0, 4), smi=""):
+    """Phases 7a and 9: ``cfg`` at its full width and depth served on
+    ``device`` in each of ``precisions`` (0 = fp32, 4 = int4 fake-quant) by
+    EngineCore + LMRunner: 4 slots, prefill chunk 8, speculation k =
+    ``speculate``, the ``trace`` (`lm_trace` by default). Every request
+    emits its budget inside the vocab; the ``solo`` requests served alone
+    without speculation equal their streams in the batch; host ms per
+    engine step. The first precision alone is warmed up, profiled (device
+    busy from torch.profiler) and timed per decode step against the step's
+    bound: the fake-quant view changes the weights' values, not the work."""
     import copy
     import numpy as np
     from repro_torch.models import transformer as tf
     from repro_torch.serve.runners.lm import LMRunner
-    prompts, opts = lm_trace(cfg.vocab)
+    prompts, opts = (trace or lm_trace)(cfg.vocab)
     t0 = time.perf_counter()
     params = tf.init_params(torch.Generator(device=device).manual_seed(0), cfg, device)
     sync(torch, device)
     init_s = time.perf_counter() - t0
-    out = {"init_s": init_s}
-    for bits in (0, 4):
+    out = {"init_s": init_s, "params_bytes": tree_bytes(params)}
+    for bits in precisions:
         name = f"int{bits}" if bits else "fp32"
+        first = bits == precisions[0]
         runner = LMRunner(cfg, params, max_seq=LM_MAX_SEQ, quant_bits=bits,
-                          speculate_k=LM_SPECULATE, device=device)
+                          speculate_k=speculate, device=device)
         plain = copy.copy(runner)                     # the same weights, no speculation
         plain.speculate_k = 0
-        lm_serve(torch, runner, prompts[:1], opts[:1], device)            # warm-up
-        res, times, prof = lm_serve(torch, runner, prompts, opts, device, profile_at=6)
+        if first:
+            lm_serve(torch, runner, prompts[:1], opts[:1], device)        # warm-up
+        t1 = time.perf_counter()
+        res, times, prof = lm_serve(torch, runner, prompts, opts, device,
+                                    profile_at=6 if first else None)
         for i, (p, r) in enumerate(zip(prompts, res)):
             new = r.outputs[len(p):]
             if r.status != "ok" or len(new) != LM_NEW or r.outputs[:len(p)] != p \
                     or not all(0 <= t < cfg.vocab for t in r.outputs):
-                errors.append(f"lm {name}: request {i} status={r.status} emitted {len(new)}")
+                errors.append(f"lm {cfg.name} {name}: request {i} status={r.status} "
+                              f"emitted {len(new)}")
         drafted = sum(r.stats["drafted_tokens"] for r in res)
-        # the repetitive request without speculation, and the longest greedy
-        # prompt, each served alone: equal to their streams in the batch
-        solo = {i: lm_serve(torch, plain, [prompts[i]], [opts[i]], device)[0][0].outputs
-                for i in (6, 1)}
-        for i, stream in solo.items():
+        t2 = time.perf_counter()
+        # requests served alone without speculation: equal to their streams
+        # in the (speculative) batch
+        alone = {i: lm_serve(torch, plain, [prompts[i]], [opts[i]], device)[0][0].outputs
+                 for i in solo}
+        for i, stream in alone.items():
             if stream != res[i].outputs:
-                errors.append(f"lm {name}: request {i} served alone without speculation "
-                              f"differs from the speculative batch")
-        # one plain decode step on 4 slots, against its bound
-        sess = plain.open_session(LM_SLOTS)
-        tokens = torch.ones((LM_SLOTS, 1), dtype=torch.long, device=device)
-        pos = torch.full((LM_SLOTS,), LM_MAX_SEQ // 2, device=device)
-        step_ms = []
-        for _ in range(6):
-            t1 = time.perf_counter()
-            tf.decode_step(plain.params, sess.cache, {"tokens": tokens}, pos, cfg)
-            sync(torch, device)
-            step_ms.append((time.perf_counter() - t1) * 1e3)
-        bound_ms = decode_bound_ms(torch, plain.params, sess.cache)
-        busy, wall, n_prof, top = prof
-        row = {"steps": len(times) + n_prof, "ms_per_step": times,
-               "median_ms_per_step": float(np.median(times)),
-               "decode_step_ms": step_ms, "median_decode_step_ms": float(np.median(step_ms[1:])),
-               "decode_bound_ms": bound_ms, "drafted": drafted,
+                errors.append(f"lm {cfg.name} {name}: request {i} served alone without "
+                              f"speculation differs from the batch")
+        row = {"steps": len(times) + (prof[2] if prof else 0), "ms_per_step": times,
+               "median_ms_per_step": float(np.median(times)), "drafted": drafted,
                "accepted": sum(r.stats["accepted_tokens"] for r in res),
-               "profiled_steps": n_prof, "profiled_wall_ms": wall, "profiled_busy_ms": busy,
-               "profiled_top": top,
+               "solo_equal": sorted(alone), "trace_s": t2 - t1,
+               "solo_s": time.perf_counter() - t2,
                "outputs": [r.outputs[len(p):] for p, r in zip(prompts, res)]}
         out[name] = row
-        print(f"lm {name}: {len(prompts)} requests, {row['steps']} engine steps, host "
-              f"{row['median_ms_per_step']:.3f} ms per engine step (median, synchronized; "
-              f"up to {LM_CHUNK} decode steps each); one decode step on {LM_SLOTS} slots "
-              f"{row['median_decode_step_ms']:.3f} ms against a bound of {bound_ms:.3f} ms; "
-              f"profiled steps {6}-{5 + n_prof}: device busy {busy / n_prof:.3f} ms/step, "
-              f"{100 * busy / wall:.1f}% of their {wall / n_prof:.3f} ms/step under the "
-              f"profiler, {100 * busy / n_prof / row['median_ms_per_step']:.1f}% of the "
-              f"unprofiled median step; drafted {drafted}, accepted {row['accepted']}")
-        print(f"lm {name}: top device ms/step (launches/step): "
-              + ", ".join(f"{k[:40]} {ms:.3f} ({n})" for k, ms, n in top))
-        del runner, plain, sess
+        print(f"lm {cfg.name} {name} [{smi}]: {len(prompts)} requests, {row['steps']} engine "
+              f"steps, host {row['median_ms_per_step']:.3f} ms per engine step (median, "
+              f"synchronized; up to {LM_CHUNK} decode steps each); drafted {drafted}, "
+              f"accepted {row['accepted']}; requests {sorted(alone)} alone = batch; trace "
+              f"{row['trace_s']:.1f} s, solo {row['solo_s']:.1f} s")
+        if first:
+            row.update(decode_step(torch, cfg, plain, device, prof, row, smi))
+        del runner, plain
     del params
     if str(device).startswith("cuda"):
         torch.cuda.empty_cache()
+    return out
+
+
+def decode_step(torch, cfg, runner, device, prof, row, smi):
+    """One plain decode step of ``runner`` on 4 slots: host ms, against its
+    bound (and for MoE the routed experts' bound), and the profiled engine
+    steps' device busy beside ``row``'s median engine step."""
+    import numpy as np
+    from repro_torch.models import transformer as tf
+    sess = runner.open_session(LM_SLOTS)
+    tokens = torch.ones((LM_SLOTS, 1), dtype=torch.long, device=device)
+    pos = torch.full((LM_SLOTS,), LM_MAX_SEQ // 2, device=device)
+    step = lambda: tf.decode_step(runner.params, sess.cache, {"tokens": tokens}, pos, cfg)
+    step_ms = []
+    for _ in range(6):
+        t1 = time.perf_counter()
+        step()
+        sync(torch, device)
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    bound_ms = decode_bound_ms(torch, cfg, runner.params, sess.cache)
+    routed_ms = routed_bound_ms(torch, cfg, runner.params, sess.cache, step) \
+        if cfg.n_experts else None
+    busy, wall, n_prof, top = prof
+    out = {"decode_step_ms": step_ms, "median_decode_step_ms": float(np.median(step_ms[1:])),
+           "decode_bound_ms": bound_ms, "routed_bound_ms": routed_ms,
+           "profiled_steps": n_prof, "profiled_wall_ms": wall, "profiled_busy_ms": busy,
+           "profiled_top": top}
+    routed = "" if routed_ms is None else f" (routed experts only: {routed_ms:.3f} ms)"
+    print(f"lm {cfg.name} [{smi}]: one decode step on {LM_SLOTS} slots "
+          f"{out['median_decode_step_ms']:.3f} ms against a bound of {bound_ms:.3f} ms"
+          f"{routed}; profiled steps 6-{5 + n_prof}: device busy {busy / n_prof:.3f} ms/step, "
+          f"{100 * busy / wall:.1f}% of their {wall / n_prof:.3f} ms/step under the profiler, "
+          f"{100 * busy / n_prof / row['median_ms_per_step']:.1f}% of the unprofiled median "
+          f"step")
+    print(f"lm {cfg.name}: top device ms/step (launches/step): "
+          + ", ".join(f"{k[:40]} {ms:.3f} ({n})" for k, ms, n in top))
     return out
 
 
@@ -1309,17 +1394,11 @@ def to_device(tree, device):
     return tree.to(device)
 
 
-def check_lm_against_cpu(torch, cfg, device, errors):
-    """Phase 7b: qwen at full width and depth 2, the card against the CPU."""
-    import numpy as np
+def compare_decode_chunk(torch, cfg, params, cpu, device, rng, errors):
+    """`decode_chunk` logits of 4 ragged rows (16 columns) on the card
+    against the CPU: (max |dlogits|, columns with a CPU top-2 gap above
+    tol, columns)."""
     from repro_torch.models import transformer as tf
-    from repro_torch.serve.api import EngineConfig
-    from repro_torch.serve.core import EngineCore
-    from repro_torch.serve.runners.lm import LMRunner
-    params = tf.init_params(torch.Generator(device=device).manual_seed(1), cfg, device)
-    cpu = to_device(params, "cpu")
-
-    rng = np.random.default_rng(8)
     toks = torch.from_numpy(rng.integers(1, cfg.vocab, (LM_SLOTS, 16)))
     pos0, take = torch.tensor([0, 3, 0, 7]), torch.tensor([16, 11, 16, 6])
     _, card, _ = tf.decode_chunk(params, tf.init_cache(cfg, LM_SLOTS, 64, device),
@@ -1336,8 +1415,24 @@ def check_lm_against_cpu(torch, cfg, device, errors):
         clear += int(sure.sum())
         flips += int((card[r, cols].argmax(-1) != ref[r, cols].argmax(-1))[sure].sum())
     if worst > LM_CPU_TOL or flips:
-        errors.append(f"lm card vs CPU: max|dlogits| {worst} (tol {LM_CPU_TOL}), "
-                      f"{flips} argmax flips where the CPU's top-2 gap exceeds it")
+        errors.append(f"lm {cfg.name} card vs CPU: decode_chunk max|dlogits| {worst} (tol "
+                      f"{LM_CPU_TOL}), {flips} argmax flips where the CPU's top-2 gap "
+                      f"exceeds it")
+    return worst, clear, int(take.sum())
+
+
+def check_lm_against_cpu(torch, cfg, device, errors):
+    """Phase 7b: qwen at full width and depth 2, the card against the CPU."""
+    import numpy as np
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.api import EngineConfig
+    from repro_torch.serve.core import EngineCore
+    from repro_torch.serve.runners.lm import LMRunner
+    params = tf.init_params(torch.Generator(device=device).manual_seed(1), cfg, device)
+    cpu = to_device(params, "cpu")
+
+    rng = np.random.default_rng(8)
+    worst, clear, columns = compare_decode_chunk(torch, cfg, params, cpu, device, rng, errors)
 
     prompts = [rng.integers(1, cfg.vocab, n).tolist() for n in (3, 17, 40, 9)]
     streams = {}
@@ -1356,24 +1451,42 @@ def check_lm_against_cpu(torch, cfg, device, errors):
                 errors.append(f"lm card vs CPU: greedy streams differ at token {d[0]} "
                               f"where the CPU's top-2 gap is {d[1]}")
     print(f"lm card vs CPU ({cfg.n_layers} layers, full width): decode_chunk max|dlogits| "
-          f"{worst:.3e} (tol {LM_CPU_TOL}) over {int(take.sum())} columns, argmax equal at "
+          f"{worst:.3e} (tol {LM_CPU_TOL}) over {columns} columns, argmax equal at "
           f"all {clear} columns with a top-2 gap above tol; served streams "
           f"{'equal' if not diverged else f'diverge at (token, top-2 gap) {diverged}'}")
     return {"max_dlogits": worst, "clear_columns": clear, "diverged": diverged}, params
 
 
-def check_serve_lm_w4(torch, errors):
-    """Phase 7c: `launch/serve_lm_w4.py --full`, the int4 matmul's main path."""
+def check_serve_lm_w4(torch, errors, arch="qwen1.5-4b", tokens=12):
+    """Phases 7c and 9d: `launch/serve_lm_w4.py --arch ARCH --full`, the int4
+    matmul's main path: exits, every stream emits ``tokens``, and its one
+    kernel-6 launch within phase 3's bar of `int4_matmul_plain`."""
     from repro_torch.kernels import CUDA_LAUNCHES, reset_cuda_launches
+    from repro_torch.kernels.int4_matmul import ops as i4
     from repro_torch.launch import serve_lm_w4
+    t0 = time.perf_counter()
     reset_cuda_launches()
-    res = serve_lm_w4.main(["--full"])
+    res = serve_lm_w4.main(["--arch", arch, "--full", "--tokens", str(tokens),
+                            "--device", "cuda"])
     torch.cuda.synchronize()
     launches = dict(CUDA_LAUNCHES)
-    if res["err"] > 1e-4 * max(1.0, res["y"].abs().max().item()) or \
-            launches["int4_matmul"] != 1:
-        errors.append(f"serve_lm_w4 --full: err {res['err']} launches {launches}")
-    return {"launches": launches, "err": res["err"], "streams": res["streams"]}
+    ref = i4.int4_matmul_plain(res["x"], res["qt"].packed, res["qt"].scale)
+    err = (res["y"] - ref).abs().max().item()
+    tol = 1e-4 * max(1.0, ref.abs().max().item())
+    emitted = [len(s) for bits in res["streams"].values() for s in bits]
+    if err > tol or launches["int4_matmul"] != 1 or set(emitted) != {tokens}:
+        errors.append(f"serve_lm_w4 --arch {arch} --full: err {err} (tol {tol}) launches "
+                      f"{launches} emitted {emitted}")
+    out = {"launches": launches, "err": err, "tol": tol, "streams": res["streams"],
+           "x": tuple(res["x"].shape), "packed": tuple(res["qt"].packed.shape),
+           "seconds": time.perf_counter() - t0}
+    del res
+    torch.cuda.empty_cache()
+    print(f"serve_lm_w4 --arch {arch} --full: x{out['x']} @ packed{out['packed']}, "
+          f"max|y - int4_matmul_plain| {err:.3e} (tol {tol:.1e}), launches "
+          f"{launches['int4_matmul']}, {len(emitted)} streams of {tokens} tokens, "
+          f"{out['seconds']:.1f} s")
+    return out
 
 
 def check_prefill_attention(torch, cfg, params, errors, seq=2048):
@@ -1785,6 +1898,181 @@ def check_entry_points(errors):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the rest of the LM family
+# ---------------------------------------------------------------------------
+
+# the archs phase 9 runs beside qwen1.5-4b, in the registry's order
+FAMILY = ("granite-34b", "starcoder2-15b", "minitron-8b", "recurrentgemma-2b",
+          "musicgen-large", "phi-3-vision-4.2b", "llama4-maverick-400b-a17b",
+          "granite-moe-3b-a800m", "xlstm-125m")
+# phase 9c: the archs held against the CPU, at full width and this many
+# periods (plus the tail)
+CPU_PERIODS = {"granite-moe-3b-a800m": 2, "recurrentgemma-2b": 1, "xlstm-125m": 1,
+               "phi-3-vision-4.2b": 2, "musicgen-large": 2}
+# an expert set may differ between card and CPU only where the CPU's
+# k-th/(k+1)-th router-logit gap is within this (7b's argmax rule, routed)
+ROUTE_GAP = 1e-4
+
+
+def recurrent_trace(vocab):
+    """6 requests on 4 slots, 16 new tokens each, so that two are admitted
+    into freed slots (indices 4 and 5): prompts of 0-90 random tokens, one
+    sampled (index 2: temperature 0.8, top-p 0.9, seed 1)."""
+    import numpy as np
+    rng = np.random.default_rng(10)
+    prompts = [rng.integers(1, vocab, n).tolist() for n in (30, 90, 5, 60, 17, 0)]
+    opts = [{} for _ in prompts]
+    opts[2] = dict(temperature=0.8, top_p=0.9, seed=1)
+    return prompts, opts
+
+
+def check_recurrent_serving(torch, cfg, errors, smi):
+    """Phase 9b: a recurrent arch at full width and depth served in fp32,
+    freed slots re-admitted (the re-admitted requests served alone equal
+    their batch streams), and speculation refused with the reference's
+    message."""
+    from repro_torch.serve.runners.lm import LMRunner
+    out = check_lm_serving(torch, cfg, "cuda", errors, trace=recurrent_trace, speculate=0,
+                           solo=(4, 5), precisions=(0,), smi=smi)
+    try:
+        LMRunner(cfg, None, speculate_k=LM_SPECULATE, device="cuda")
+        errors.append(f"lm {cfg.name}: speculate_k={LM_SPECULATE} was not refused")
+    except AssertionError as exc:
+        out["speculation_refused"] = str(exc)
+        if "cannot roll back" not in str(exc):
+            errors.append(f"lm {cfg.name}: speculation refused with {exc!r}")
+    print(f"lm {cfg.name}: speculate_k={LM_SPECULATE} refused: "
+          f"{out.get('speculation_refused')}")
+    return out
+
+
+class Routes:
+    """Records each MoE layer's router logits and top-k experts (CPU copies),
+    call by call, while active, by wrapping `models.moe._top_k`."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.top_k, self.calls = moe, moe._top_k, []
+
+        def spy(logits, k):
+            vals, idx = self.top_k(logits, k)
+            self.calls.append((logits.float().cpu(), idx.cpu()))
+            return vals, idx
+        moe._top_k = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._top_k = self.top_k
+
+
+def route_differences(torch, card, cpu, k):
+    """(tokens whose expert set differs between the card's and the CPU's
+    calls, of those the ones where the CPU's k-th/(k+1)-th router-logit gap
+    exceeds ROUTE_GAP, tokens routed)."""
+    differ = clear = tokens = 0
+    assert len(card) == len(cpu)
+    for (_, a), (logits, b) in zip(card, cpu):
+        tokens += a.shape[0]
+        diff = (a.sort(-1).values != b.sort(-1).values).any(-1)
+        top = torch.topk(logits, k + 1, dim=-1).values
+        differ += int(diff.sum())
+        clear += int((diff & ((top[:, k - 1] - top[:, k]) > ROUTE_GAP)).sum())
+    return differ, clear, tokens
+
+
+def check_arch_against_cpu(torch, cfg, errors, batch=2):
+    """Phase 9c: ``cfg`` at full width (its depth cut by the caller) on the
+    card against the CPU: `decode_chunk` and `forward` logits (with
+    synthesized frontend embeddings where the arch has a frontend) within
+    LM_CPU_TOL, argmax equal where the CPU's top-2 gap exceeds it, and for
+    MoE no token whose expert set differs where the router's gap exceeds
+    ROUTE_GAP, in either run."""
+    import numpy as np
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.frontends import synth_frontend
+    t0 = time.perf_counter()
+    params = tf.init_params(torch.Generator(device="cuda").manual_seed(1), cfg, "cuda")
+    cpu = to_device(params, "cpu")
+    rng = np.random.default_rng(11)
+    inputs = {"tokens": torch.from_numpy(rng.integers(1, cfg.vocab, (batch, 64)))}
+    if cfg.frontend:
+        inputs["frontend_embeds"] = synth_frontend(torch.Generator().manual_seed(3), cfg, batch,
+                                                   "cpu")
+    with Routes() as routes:
+        # decode_chunk runs on the card, then on the CPU
+        dc_worst, dc_clear, columns = compare_decode_chunk(torch, cfg, params, cpu, "cuda",
+                                                           rng, errors)
+        n_dc = len(routes.calls)
+        out, aux = tf.forward(params, to_device(inputs, "cuda"), cfg)
+        out = out.cpu()
+        n_card = len(routes.calls)
+        ref, ref_aux = tf.forward(cpu, inputs, cfg)
+    calls = routes.calls
+    worst = (out - ref).abs().max().item()
+    top2 = torch.topk(ref, 2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > LM_CPU_TOL
+    flips = int((out.argmax(-1) != ref.argmax(-1))[sure].sum())
+    if worst > LM_CPU_TOL or flips or not torch.isfinite(out).all():
+        errors.append(f"lm {cfg.name} card vs CPU: forward max|dlogits| {worst} (tol "
+                      f"{LM_CPU_TOL}), {flips} argmax flips where the CPU's top-2 gap "
+                      f"exceeds it")
+    row = {"layers": cfg.n_layers, "decode_chunk_max_dlogits": dc_worst,
+           "decode_chunk_columns": columns, "decode_chunk_clear": dc_clear,
+           "forward_max_dlogits": worst,
+           "forward_positions": int(ref.shape[0] * ref.shape[1]),
+           "forward_clear": int(sure.sum()), "aux_card": float(aux), "aux_cpu": float(ref_aux)}
+    routed = ""
+    if cfg.n_experts:
+        differ, clear, tokens = (sum(v) for v in zip(
+            route_differences(torch, calls[:n_dc // 2], calls[n_dc // 2:n_dc], cfg.top_k),
+            route_differences(torch, calls[n_dc:n_card], calls[n_card:], cfg.top_k)))
+        row.update(route_tokens=tokens, route_differ=differ, route_differ_clear=clear)
+        if clear:
+            errors.append(f"lm {cfg.name} card vs CPU: {clear} tokens route to other experts "
+                          f"where the router's k-th/(k+1)-th gap exceeds {ROUTE_GAP}")
+        routed = (f"; expert sets equal at {tokens - differ}/{tokens} routed tokens "
+                  f"({clear} differ above a {ROUTE_GAP} router gap); aux {float(aux):.6f} "
+                  f"vs {float(ref_aux):.6f}")
+    front = f", frontend {tuple(inputs['frontend_embeds'].shape)}" if cfg.frontend else ""
+    row["seconds"] = time.perf_counter() - t0
+    print(f"lm {cfg.name} card vs CPU ({cfg.n_layers} layers, full width{front}): "
+          f"decode_chunk max|dlogits| {dc_worst:.3e} over {columns} columns, forward "
+          f"{worst:.3e} over {row['forward_positions']} positions (tol {LM_CPU_TOL}), argmax "
+          f"equal at all {row['forward_clear']} positions with a top-2 gap above tol{routed}; "
+          f"{row['seconds']:.1f} s")
+    del params, cpu
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_family(torch, errors, smi):
+    """Phase 9: (a) granite-moe-3b and (b) the two recurrent archs served at
+    full width and depth, (c) five archs' card against the CPU at full
+    width, (d) serve_lm_w4 --full for each arch but qwen; the seconds of
+    each part."""
+    from repro_torch.configs import get_arch
+    fp32 = lambda arch, **kw: get_arch(arch).with_(dtype="float32", **kw)
+    family = {"serve": {}, "cpu": {}, "serve_lm_w4": {}}
+    t = time.perf_counter()
+    moe_cfg = fp32("granite-moe-3b-a800m")
+    family["serve"][moe_cfg.name] = check_lm_serving(torch, moe_cfg, "cuda", errors, smi=smi)
+    family["seconds_a"], t = time.perf_counter() - t, time.perf_counter()
+    for arch in ("recurrentgemma-2b", "xlstm-125m"):
+        family["serve"][arch] = check_recurrent_serving(torch, fp32(arch), errors, smi)
+    family["seconds_b"], t = time.perf_counter() - t, time.perf_counter()
+    for arch, periods in CPU_PERIODS.items():
+        base = get_arch(arch)
+        family["cpu"][arch] = check_arch_against_cpu(
+            torch, fp32(arch, n_layers=periods * len(base.pattern) + len(base.tail)), errors,
+            batch=1 if base.frontend else 2)
+    family["seconds_c"], t = time.perf_counter() - t, time.perf_counter()
+    for arch in FAMILY:
+        family["serve_lm_w4"][arch] = check_serve_lm_w4(torch, errors, arch, tokens=4)
+    family["seconds_d"] = time.perf_counter() - t
+    return family
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1841,10 +2129,13 @@ def main() -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     dense_shape, mm_shapes, epi_shapes = main_path_shapes(cfg, SLOTS)
     gated_shapes, lif_shapes = unfused_shapes(cfg, SLOTS)
-    # kernel 6: fp32 x at qwen's eight shapes goes in the kernels line, as
-    # in every earlier run; bf16 x at the prefill shapes and the LM head is
-    # held and printed beside it
+    # kernel 6: fp32 x at qwen's eight shapes and at serve_lm_w4 --full's
+    # shape for the other archs (K = their d_model, phase 9d) goes in the
+    # kernels line; bf16 x at qwen's prefill shapes and LM head is held and
+    # printed beside it
     int4_qwen = int4_shapes(qwen, LM_SLOTS, LM_MAX_SEQ)
+    int4_family = [(4, k, 256) for k in sorted({get_arch(a).d_model for a in FAMILY}
+                                               - {qwen.d_model})]
     # kernel 1 at density 0.1 goes in the kernels line, as in every
     # earlier run; its denser rows are held and printed beside it
     mapped = {d: check_spike_matmul(torch, mm_shapes, gen, d) for d in DENSITIES}
@@ -1855,7 +2146,7 @@ def main() -> None:
         "dense_conv_lif": check_dense_conv_lif(torch, dense_shape, cfg.timesteps, gen),
         "spike_matmul": gated[0.1],
         "lif_step": check_lif_step(torch, lif_shapes, gen),
-        "int4_matmul": check_int4_matmul(torch, int4_qwen, gen, torch.float32),
+        "int4_matmul": check_int4_matmul(torch, int4_qwen + int4_family, gen, torch.float32),
         "flash_attention": check_flash_attention(torch, gen, qwen.n_heads, qwen.hd),
     }
     failed = []
@@ -1910,8 +2201,11 @@ def main() -> None:
                   f"{sum(r['library_ms'] for r in rows):.4f} bound_ms="
                   f"{sum(r['bound_ms'] for r in rows):.4f} tile_bound_ms="
                   f"{sum(r['tile_bound_ms'] for r in rows):.4f}")
-    for kname in ("int4_matmul", "int4_matmul bf16"):
-        rows = checked[kname]
+    int4_rows = {"int4_matmul": checked["int4_matmul"],
+                 "int4_matmul qwen": checked["int4_matmul"][:len(int4_qwen)],
+                 "int4_matmul family": checked["int4_matmul"][len(int4_qwen):],
+                 "int4_matmul bf16": checked["int4_matmul bf16"]}
+    for kname, rows in int4_rows.items():
         print(f"  {kname}: sum over shapes ms={sum(r['ms'] for r in rows):.4f} graph_ms="
               f"{sum(r['graph_ms'] for r in rows):.4f} library_ms="
               f"{sum(r['library_ms'] for r in rows):.4f} library_graph_ms="
@@ -1965,7 +2259,7 @@ def main() -> None:
         fail("; ".join(errors))
 
     # 7. lm
-    lm = {"serve": check_lm_serving(torch, qwen, "cuda", errors)}
+    lm = {"serve": check_lm_serving(torch, qwen, "cuda", errors, smi=smi_line)}
     lm["cpu"], params2 = check_lm_against_cpu(torch, qwen.with_(n_layers=2), "cuda", errors)
     lm["attention"] = check_prefill_attention(torch, qwen.with_(n_layers=2), params2, errors)
     del params2
@@ -1983,6 +2277,16 @@ def main() -> None:
     precision["entry_points"] = check_entry_points(errors)
     precision["seconds"] = time.perf_counter() - t8
     print(f"phase 8 precision: {len(errors)} errors in {precision['seconds']:.1f} s")
+    if errors:
+        fail("; ".join(errors))
+
+    # 9. the rest of the LM family
+    t9 = time.perf_counter()
+    family = check_family(torch, errors, smi_line)
+    family["seconds"] = time.perf_counter() - t9
+    print(f"phase 9 lm family: {len(errors)} errors in {family['seconds']:.1f} s "
+          f"(9a {family['seconds_a']:.1f}, 9b {family['seconds_b']:.1f}, 9c "
+          f"{family['seconds_c']:.1f}, 9d {family['seconds_d']:.1f}) [{smi_line}]")
     if errors:
         fail("; ".join(errors))
 
@@ -2010,9 +2314,10 @@ def main() -> None:
                  for k in ("spike_matmul_mapped", "lif_epilogue_scan", "dense_conv_lif")}
     main_runs.update({k: [v["launches"] for v in unfused.values()]
                       for k in ("spike_matmul", "lif_step")})
-    # the LM's kernels: serve_lm_w4 --full (phase 7c) and the layer-0
+    # the LM's kernels: serve_lm_w4 --full (phases 7c and 9d) and the layer-0
     # prefill attention (phase 7d)
-    main_runs["int4_matmul"] = [lm["serve_lm_w4"]["launches"]]
+    main_runs["int4_matmul"] = [lm["serve_lm_w4"]["launches"]] + [
+        run["launches"] for run in family["serve_lm_w4"].values()]
     main_runs["flash_attention"] = [run["launches"] for run in lm["attention"].values()]
     kernels = []
     for kname, rows in table.items():
@@ -2040,7 +2345,7 @@ def main() -> None:
         json.dump({"device": kind, "nvidia_smi": smi_line, "sass": sass, "kernels": checked,
                    "launch_floor_ms": floor_ms,
                    "serve": served, "unfused": unfused, "train": trained, "lm": lm,
-                   "precision": precision}, f,
+                   "precision": precision, "family": family}, f,
                   indent=1,
                   default=str)
     if any(math.isnan(k["ms"]) for k in kernels):

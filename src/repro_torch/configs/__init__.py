@@ -1,15 +1,18 @@
 """Model configurations: the paper's spiking VGG9 (`vgg9_snn`) and the LM
 architectures (`base.ArchConfig`, `get_arch(name)` / `all_archs()`).
 
-Only the architectures whose block kinds the port runs are registered:
-qwen1.5-4b (``attn_mlp``). The JAX package's other nine arch configs come
-with their block kinds (ROADMAP, queue 1 item 5).
+The registry holds the JAX package's ten LM architectures, each config a
+copy of the reference's, field for field.
 """
 from .base import ArchConfig, ShapeConfig, SHAPES, get_arch, all_archs, shape_applicable
 
 _LOADED = False
 
-ARCH_MODULES = ("qwen1_5_4b",)
+ARCH_MODULES = (
+    "granite_34b", "starcoder2_15b", "qwen1_5_4b", "minitron_8b",
+    "recurrentgemma_2b", "musicgen_large", "phi_3_vision_4_2b",
+    "llama4_maverick_400b", "granite_moe_3b", "xlstm_125m",
+)
 
 
 def _load_all():

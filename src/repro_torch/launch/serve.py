@@ -1,6 +1,9 @@
 """Serving CLI for the port: the decoder LM or the spiking VGG9 behind one EngineCore.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --workload lm --arch qwen1.5-4b --tokens 16
+    # any of the ten registered archs, e.g. MoE or recurrent (reduced):
+    PYTHONPATH=src python -m repro_torch.launch.serve --workload lm --device cpu \\
+        --arch granite-moe-3b-a800m --prefill-chunk 4
     PYTHONPATH=src python -m repro_torch.launch.serve --workload lm --device cpu \\
         --prefill-chunk 4 --speculate 4 --temperature 0.8 --top-p 0.95 --seed 7
     # qwen1.5-4b at its full width and depth (fp32 weights, 15.8 GB; the card):
@@ -22,8 +25,11 @@
 Runs on the card unless ``--device cpu`` is given; asking for the card
 without one raises. The LM is cut to ``--d-model`` / ``--n-layers`` /
 ``--vocab`` as the JAX package's CLI cuts it (0 keeps the architecture's
-own). The fleet and data-shard flags of that CLI (`NOT_PORTED`) are not
-ported yet and exit with a message saying so.
+own; archs with more than 8 experts keep 8 at top-k <= 2, frontends are
+dropped). ``--speculate`` on an arch with recurrent or ring-buffer state
+(recurrentgemma-2b, xlstm-125m) is refused with the reference's
+AssertionError. The fleet and data-shard flags of that CLI (`NOT_PORTED`)
+are not ported yet and exit with a message saying so.
 """
 from __future__ import annotations
 

@@ -3,17 +3,20 @@
     PYTHONPATH=src python -m repro_torch.launch.serve_lm_w4 --arch qwen1.5-4b
     PYTHONPATH=src python -m repro_torch.launch.serve_lm_w4 --device cpu --tokens 4
     PYTHONPATH=src python -m repro_torch.launch.serve_lm_w4 --full     # qwen's real widths
+    PYTHONPATH=src python -m repro_torch.launch.serve_lm_w4 --arch granite-moe-3b-a800m --full
 
-The port of the JAX package's examples/serve_lm_w4.py. The architecture is
-cut to the example's size (2 periods, d_model 64, head_dim 16, d_ff 128,
-vocab 257), or with ``--full`` keeps its own widths and vocab at the same
-depth. The model is served through `EngineCore` + `LMRunner` with fp32
-weights and with their int4 fake-quant view (4 slots, max_seq 64, the
-example's four prompts); then the int4 matmul (`w4a16_linear`) runs on
-operands drawn as the example draws them (numpy ``default_rng(0)`` weights,
-the first 256 of ``vocab - 1`` columns, and ``default_rng(1)`` activations
-for 4 rows), so its output compares with the JAX example's. Runs on the
-card unless ``--device cpu`` is given.
+The port of the JAX package's examples/serve_lm_w4.py, for every
+registered architecture. The architecture is cut to the example's size (2
+periods, d_model 64, head_dim 16, d_ff 128, vocab 257, 8 experts of
+moe_d_ff 32 at top-k <= 2, d_rnn 64), or with ``--full`` keeps its own
+widths and vocab at the same depth (the 8-expert cut stays). The model is
+served through `EngineCore` + `LMRunner` with fp32 weights and with their
+int4 fake-quant view (4 slots, max_seq 64, the example's four prompts);
+then the int4 matmul (`w4a16_linear`) runs on operands drawn as the
+example draws them (numpy ``default_rng(0)`` weights, the first 256 of
+``vocab - 1`` columns, and ``default_rng(1)`` activations for 4 rows), so
+its output compares with the JAX example's. Runs on the card unless
+``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -37,21 +40,31 @@ PROMPTS = ([1, 2, 3], [9, 8], [5], [12, 13, 14])
 
 
 def example_cfg(arch: str, full: bool = False):
-    """The example's cut of ``arch``: 2 periods, fp32; small widths unless
-    ``full``. (The JAX example also cuts MoE and recurrent widths; those
-    block kinds are not ported yet.)"""
+    """The example's cut of ``arch``: 2 periods and no tail, fp32, no
+    frontend, 8 experts (where the arch has experts), top-k at most 2, no
+    expert padding or FSDP; with small widths (d_model 64, head_dim 16,
+    d_ff 128, vocab 257, moe_d_ff 32, d_rnn 64) unless ``full``, which keeps
+    the arch's widths and vocab but still takes the expert-count cut, as
+    the JAX example cuts experts whatever the widths."""
     base = get_arch(arch)
     cfg = base.with_(n_layers=2 * len(base.pattern), tail=(), dtype="float32",
-                     remat="none", frontend="")
+                     remat="none", frontend="", n_experts=8 if base.n_experts else 0,
+                     n_experts_padded=0, top_k=min(base.top_k, 2), fsdp_experts=False)
     if full:
         return cfg
-    return cfg.with_(d_model=64, head_dim=16, d_ff=128, vocab=257, q_chunk=16, kv_chunk=16)
+    return cfg.with_(d_model=64, head_dim=16, d_ff=128, vocab=257, q_chunk=16, kv_chunk=16,
+                     moe_d_ff=32 if base.moe_d_ff else 0, d_rnn=64 if base.d_rnn else 0)
 
 
 def kernel_operands(d_model: int, vocab: int, device):
-    """x [4, d_model] and the int4 weights [d_model, 256] of the example."""
-    w = np.random.default_rng(0).normal(size=(d_model, vocab - 1)).astype("float32")
-    qt = quantize_int4(torch.from_numpy(np.ascontiguousarray(w[:, :256])).to(device))
+    """x [4, d_model] and the int4 weights [d_model, 256] of the example:
+    the first 256 columns of a ``default_rng(0)`` normal [d_model, vocab - 1]
+    matrix, drawn a block of rows at a time (the same values as one draw)
+    so that a large vocab never holds the whole matrix."""
+    rng, rows = np.random.default_rng(0), max(1, (1 << 24) // max(vocab - 1, 1))
+    w = np.concatenate([rng.normal(size=(min(rows, d_model - r), vocab - 1))[:, :256]
+                        for r in range(0, d_model, rows)]).astype("float32")
+    qt = quantize_int4(torch.from_numpy(w).to(device))
     x = np.random.default_rng(1).normal(size=(4, d_model)).astype("float32")
     return torch.from_numpy(x).to(device), qt
 
@@ -88,7 +101,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     print(f"int4_matmul kernel: x{tuple(x.shape)} @ packed{tuple(qt.packed.shape)} "
           f"-> {tuple(y.shape)}; max|y - dequantized reference| = {err:.3e}; "
           f"weight bytes = {qt.nbytes_logical} (4x less than bf16)")
-    return {"cfg": cfg, "streams": streams, "y": y, "err": err}
+    return {"cfg": cfg, "streams": streams, "x": x, "qt": qt, "y": y, "err": err}
 
 
 if __name__ == "__main__":

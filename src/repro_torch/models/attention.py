@@ -20,6 +20,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..device import resolve_device
 from .layers import apply_rope, dense_init
 
 NEG_INF = -1e30
@@ -35,8 +36,9 @@ def _largest_divisor_leq(n: int, cap: int) -> int:
 
 
 def attn_init(gen: torch.Generator, d: int, n_heads: int, n_kv_heads: int, head_dim: int,
-              qkv_bias: bool, dtype, device="cpu", lead: Tuple[int, ...] = ()
+              qkv_bias: bool, dtype, device="cuda", lead: Tuple[int, ...] = ()
               ) -> Dict[str, torch.Tensor]:
+    device = resolve_device(device)
     p = {
         "wq": dense_init(gen, d, n_heads * head_dim, dtype, device, lead),
         "wk": dense_init(gen, d, n_kv_heads * head_dim, dtype, device, lead),
@@ -136,7 +138,8 @@ def attention_block(
 # ---------------------------------------------------------------------------
 
 def init_kv_cache(batch: int, max_seq: int, n_kv_heads: int, head_dim: int, dtype,
-                  device="cpu", lead: Tuple[int, ...] = ()) -> Dict[str, torch.Tensor]:
+                  device="cuda", lead: Tuple[int, ...] = ()) -> Dict[str, torch.Tensor]:
+    device = resolve_device(device)
     shape = (*lead, batch, max_seq, n_kv_heads, head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -2,7 +2,9 @@
 
 The JAX package's models/layers.py in PyTorch. Initializers draw from an
 explicit `torch.Generator` and take a leading shape ``lead`` so that a
-stack of per-layer weights ([n_periods, ...]) is drawn in one call.
+stack of per-layer weights ([n_periods, ...]) is drawn in one call. Every
+helper that allocates takes a ``device``, the card unless the caller asks
+for the CPU (`device.resolve_device`).
 """
 from __future__ import annotations
 
@@ -11,6 +13,8 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from ..device import resolve_device
 
 
 # ---------------------------------------------------------------------------
@@ -21,17 +25,17 @@ def _trunc_normal(gen: torch.Generator, shape: Tuple[int, ...], scale: float, dt
                   device) -> torch.Tensor:
     """Normal truncated to [-2, 2], times ``scale``, drawn in float32 on
     ``device`` (the generator's device) and cast to ``dtype``."""
-    w = torch.empty(shape, dtype=torch.float32, device=device)
+    w = torch.empty(shape, dtype=torch.float32, device=resolve_device(device))
     torch.nn.init.trunc_normal_(w, a=-2.0, b=2.0, generator=gen)
     return w.mul_(scale).to(dtype)
 
 
-def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, device="cpu",
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, device="cuda",
                lead: Tuple[int, ...] = ()) -> torch.Tensor:
     return _trunc_normal(gen, (*lead, d_in, d_out), 1.0 / math.sqrt(d_in), dtype, device)
 
 
-def embed_init(gen: torch.Generator, vocab: int, d: int, dtype, device="cpu") -> torch.Tensor:
+def embed_init(gen: torch.Generator, vocab: int, d: int, dtype, device="cuda") -> torch.Tensor:
     return _trunc_normal(gen, (vocab, d), 0.02, dtype, device)
 
 
@@ -47,16 +51,18 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Te
     return out.to(dtype)
 
 
-def rmsnorm_init(d: int, dtype, device="cpu", lead: Tuple[int, ...] = ()) -> torch.Tensor:
-    return torch.zeros((*lead, d), dtype=dtype, device=device)  # scale stored as (1 + s)
+def rmsnorm_init(d: int, dtype, device="cuda", lead: Tuple[int, ...] = ()) -> torch.Tensor:
+    # scale stored as (1 + s)
+    return torch.zeros((*lead, d), dtype=dtype, device=resolve_device(device))
 
 
 # ---------------------------------------------------------------------------
 # Rotary position embeddings
 # ---------------------------------------------------------------------------
 
-def rope_freqs(head_dim: int, theta: float = 10000.0, device="cpu") -> torch.Tensor:
-    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+def rope_freqs(head_dim: int, theta: float = 10000.0, device="cuda") -> torch.Tensor:
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=resolve_device(device)) / head_dim
     return 1.0 / (theta ** exponent)
 
 
@@ -79,7 +85,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0)
 # MLPs (swiglu / geglu / gelu / relu2): weights use 'w*' keys as in JAX
 # ---------------------------------------------------------------------------
 
-def mlp_init(gen: torch.Generator, d: int, d_ff: int, act: str, dtype, device="cpu",
+def mlp_init(gen: torch.Generator, d: int, d_ff: int, act: str, dtype, device="cuda",
              lead: Tuple[int, ...] = ()) -> Dict[str, torch.Tensor]:
     p = {"w_in": dense_init(gen, d, d_ff, dtype, device, lead),
          "w_out": dense_init(gen, d_ff, d, dtype, device, lead)}

@@ -1,0 +1,112 @@
+"""RG-LRU recurrent block (RecurrentGemma / Griffin, arXiv:2402.19427).
+
+The JAX package's models/rglru.py in PyTorch. The RG-LRU is a gated leaky
+integrator:
+
+    r_t = sigmoid(W_a x_t);  i_t = sigmoid(W_x x_t)
+    a_t = a ** (c * r_t)         (a = sigmoid(Lambda), c = 8)
+    h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
+
+i.e. the paper's LIF Eq. 1 without threshold/reset, with learned
+per-channel, per-step decay. Prefill runs a log-depth prefix scan over
+(a, b) pairs (the reference uses `lax.associative_scan`; the two round
+differently, within 1e-4 on values of order one); decode is the O(1)
+recurrent update. The block follows Griffin: two branches (conv1d ->
+RG-LRU) x (linear -> GeLU), multiplied, then projected back to d_model.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from ..device import resolve_device
+from .layers import _gelu, dense_init
+
+_C = 8.0
+
+
+def rglru_init(gen: torch.Generator, d: int, d_rnn: int, conv_width: int, dtype,
+               device="cuda", lead: Tuple[int, ...] = ()) -> Dict:
+    device = resolve_device(device)
+    conv = torch.randn((*lead, conv_width, d_rnn), generator=gen, device=device) * 0.02
+    lam = torch.linspace(0.9, 0.999, d_rnn, device=device)
+    return {
+        "w_x": dense_init(gen, d, d_rnn, dtype, device, lead),      # recurrent branch in-proj
+        "w_y": dense_init(gen, d, d_rnn, dtype, device, lead),      # gate branch in-proj
+        "w_out": dense_init(gen, d_rnn, d, dtype, device, lead),
+        "w_conv": conv.to(dtype),
+        "w_a": dense_init(gen, d_rnn, d_rnn, dtype, device, lead),  # recurrence gate
+        "w_i": dense_init(gen, d_rnn, d_rnn, dtype, device, lead),  # input gate
+        "lam": lam.expand(*lead, d_rnn).clone(),                    # direct decay
+    }
+
+
+def _causal_conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [B, S, C], w [W, C] depthwise causal conv."""
+    width, s = w.shape[0], x.shape[1]
+    pad = torch.cat([x.new_zeros((x.shape[0], width - 1, x.shape[2])), x], dim=1)
+    out = torch.zeros_like(x)
+    for i in range(width):
+        out = out + pad[:, i:i + s, :] * w[i][None, None, :]
+    return out
+
+
+def _gates(p: Dict, u: torch.Tensor):
+    r = torch.sigmoid(u @ p["w_a"])
+    i = torch.sigmoid(u @ p["w_i"])
+    a0 = torch.clamp(p["lam"], 1e-4, 1 - 1e-4).float()
+    log_a = _C * r.float() * torch.log(a0)                     # [B, S, d_rnn]
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-9)) * (i * u).float()
+    return a, b
+
+
+def rglru_scan(p: Dict, u: torch.Tensor) -> torch.Tensor:
+    """Prefix scan of h_t = a_t h_{t-1} + b_t over the sequence, from
+    h = 0 (Hillis-Steele: log2(S) doubling steps). u: [B, S, d_rnn]."""
+    a, b = _gates(p, u)
+    s, step = a.shape[1], 1
+    while step < s:
+        # (a1, b1) then (a2, b2) composes to (a1 a2, a2 b1 + b2)
+        a_prev, b_prev = a[:, :-step], b[:, :-step]
+        b = torch.cat([b[:, :step], a[:, step:] * b_prev + b[:, step:]], dim=1)
+        a = torch.cat([a[:, :step], a[:, step:] * a_prev], dim=1)
+        step *= 2
+    return b.to(u.dtype)
+
+
+def rglru_block(p: Dict, x: torch.Tensor) -> torch.Tensor:
+    """Full Griffin recurrent block over [B, S, d] (pre-normed input)."""
+    u = _causal_conv1d(x @ p["w_x"], p["w_conv"])
+    h = rglru_scan(p, u)
+    gate = _gelu(x @ p["w_y"])
+    return (h * gate) @ p["w_out"]
+
+
+# ---------------------------------------------------------------------------
+# Decode path: O(1) state update per token
+# ---------------------------------------------------------------------------
+
+def rglru_init_state(batch: int, d_rnn: int, conv_width: int, dtype, device="cuda",
+                     lead: Tuple[int, ...] = ()) -> Dict[str, torch.Tensor]:
+    device = resolve_device(device)
+    return {
+        "h": torch.zeros((*lead, batch, d_rnn), dtype=torch.float32, device=device),
+        # trailing inputs of the causal conv
+        "conv": torch.zeros((*lead, batch, conv_width - 1, d_rnn), dtype=dtype, device=device),
+    }
+
+
+def rglru_block_decode(p: Dict, x: torch.Tensor, state: Dict
+                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: [B, 1, d]; returns ([B, 1, d], new state). ``state`` is not
+    written; the caller stores the new state (`transformer._decode_block`)."""
+    u = x @ p["w_x"]                                          # [B, 1, d_rnn]
+    hist = torch.cat([state["conv"], u], dim=1)               # [B, W, d_rnn]
+    u_conv = torch.einsum("bwc,wc->bc", hist.float(), p["w_conv"].float())[:, None, :]
+    a, b = _gates(p, u_conv.to(x.dtype))
+    h = a[:, 0] * state["h"] + b[:, 0]
+    gate = _gelu(x @ p["w_y"])
+    out = (h[:, None].to(x.dtype) * gate) @ p["w_out"]
+    return out, {"h": h, "conv": hist[:, 1:]}

@@ -7,22 +7,29 @@ stack, which is a view, not a copy. Pattern remainders live in the
 unscanned ``tail``. Parameter trees use the JAX package's keys, so
 `params_from_numpy` carries a JAX parameter tree across unchanged.
 
-Block kinds ported: ``attn_mlp`` (GQA attention + MLP: the dense
-transformers) and ``local_attn`` (the same with a sliding window). The
-others (``attn_moe``, ``rglru``, ``mlstm``, ``slstm``) and the vision/audio
-frontends raise `NotImplementedError` until their modules are ported
-(ROADMAP, queue 1 item 5). Without a device mesh the JAX package's
-sharding hooks (`_vocab_shard`, `_seq_shard`, `shard_cotangents`) are
-identities, so the port has none (distribution: ROADMAP, queue 1 item 8).
+Block kinds:
+    attn_mlp   — GQA attention + MLP (dense transformers, musicgen, phi-3)
+    attn_moe   — GQA attention + mixture-of-experts (+ optional shared MLP)
+    local_attn — sliding-window GQA attention + MLP (recurrentgemma)
+    rglru      — RG-LRU recurrent block + MLP (recurrentgemma)
+    mlstm      — xLSTM matrix-memory block (no MLP)
+    slstm      — xLSTM scalar-memory block (no MLP)
+
+The vision/audio frontends are stubs: ``batch["frontend_embeds"]`` is
+projected by ``embed.w_front`` and prepended to the token embeddings
+(`models.frontends`). Without a device mesh the JAX package's sharding
+hooks (`_vocab_shard`, `_seq_shard`, `shard_cotangents`) are identities,
+so the port has none (distribution: ROADMAP, queue 1 item 8).
 
 Serving entry points: `prefill_step`, `init_cache`, `reset_cache_rows`,
 `decode_step`, `decode_chunk` and `rollback_cache_rows`. Caches are
-``{"periods": {"slot<i>": {"k", "v"}}, "tail": (...)}`` with period leaves
-``[n_periods, B, S, KV, hd]``. `decode_step` writes the new KV entries
-into the cache it is given, in place, and returns it; `reset_cache_rows`
-and `rollback_cache_rows` update in place too. `decode_chunk` is a Python
-loop of `decode_step` calls, so it equals sequential steps bit for bit by
-construction.
+``{"periods": {"slot<i>": {...}}, "tail": (...)}`` with period leaves
+``[n_periods, B, ...]``: a KV cache ``{"k", "v"}`` per attention block,
+the recurrent state of an rglru / mlstm / slstm block. `decode_step`
+writes the new KV entries and recurrent state into the cache it is given,
+in place, and returns it; `reset_cache_rows` and `rollback_cache_rows`
+update in place too. `decode_chunk` is a Python loop of `decode_step`
+calls, so it equals sequential steps bit for bit by construction.
 """
 from __future__ import annotations
 
@@ -35,18 +42,16 @@ from ..configs.base import ArchConfig
 from ..device import resolve_device
 from .attention import attention_block, attention_decode, attn_init, init_kv_cache
 from .layers import dense_init, embed_init, mlp_apply, mlp_init, rmsnorm, rmsnorm_init
+from .moe import moe_apply, moe_init
+from .rglru import rglru_block, rglru_block_decode, rglru_init, rglru_init_state
+from .xlstm import (mlstm_block, mlstm_block_decode, mlstm_init, mlstm_init_state,
+                    slstm_block, slstm_block_decode, slstm_init, slstm_init_state)
 
-ATTN_KINDS = ("attn_mlp", "local_attn")
+ATTN_KINDS = ("attn_mlp", "attn_moe", "local_attn")
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP, queue 1 item 5); "
-        f"the port runs the block kinds {ATTN_KINDS}")
 
 
 # ===========================================================================
@@ -56,30 +61,44 @@ def _not_ported(what: str) -> NotImplementedError:
 def init_block(gen: torch.Generator, cfg: ArchConfig, kind: str, device="cuda",
                lead: Tuple[int, ...] = ()) -> Dict[str, Any]:
     """One block's parameters, or ``lead`` stacked blocks drawn at once."""
-    if kind not in ATTN_KINDS:
-        raise _not_ported(f"block kind {kind!r}")
     device = resolve_device(device)
     dt, d = _dtype(cfg), cfg.d_model
-    return {
-        "norm1": rmsnorm_init(d, dt, device, lead),
-        "attn": attn_init(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.qkv_bias, dt,
-                          device, lead),
-        "norm2": rmsnorm_init(d, dt, device, lead),
-        "mlp": mlp_init(gen, d, cfg.d_ff, cfg.mlp_act, dt, device, lead),
-    }
+    p: Dict[str, Any] = {"norm1": rmsnorm_init(d, dt, device, lead)}
+    if kind in ATTN_KINDS:
+        p["attn"] = attn_init(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.qkv_bias, dt,
+                              device, lead)
+        p["norm2"] = rmsnorm_init(d, dt, device, lead)
+        if kind == "attn_moe":
+            p["moe"] = moe_init(gen, d, cfg.n_experts, cfg.moe_d_ff or cfg.d_ff, cfg.mlp_act,
+                                dt, cfg.shared_expert, cfg.d_ff,
+                                n_experts_padded=cfg.n_experts_padded, device=device,
+                                lead=lead)
+        else:
+            p["mlp"] = mlp_init(gen, d, cfg.d_ff, cfg.mlp_act, dt, device, lead)
+    elif kind == "rglru":
+        p["rglru"] = rglru_init(gen, d, cfg.d_rnn or d, cfg.conv_width, dt, device, lead)
+        p["norm2"] = rmsnorm_init(d, dt, device, lead)
+        p["mlp"] = mlp_init(gen, d, cfg.d_ff, cfg.mlp_act, dt, device, lead)
+    elif kind == "mlstm":
+        p["mlstm"] = mlstm_init(gen, d, cfg.n_heads, dt, device, lead)
+    elif kind == "slstm":
+        p["slstm"] = slstm_init(gen, d, cfg.n_heads, dt, device, lead)
+    else:
+        raise ValueError(kind)
+    return p
 
 
 def init_params(gen: torch.Generator, cfg: ArchConfig, device="cuda") -> Dict[str, Any]:
     """Random parameters from ``gen`` (a generator on ``device``): the
     JAX package's tree and shapes, other numbers (torch's generator)."""
-    if cfg.frontend:
-        raise _not_ported(f"the {cfg.frontend!r} frontend")
     device = resolve_device(device)
     dt = _dtype(cfg)
     params: Dict[str, Any] = {
         "embed": {"w_tok": embed_init(gen, cfg.vocab, cfg.d_model, dt, device)},
         "final_norm": rmsnorm_init(cfg.d_model, dt, device),
     }
+    if cfg.frontend:
+        params["embed"]["w_front"] = dense_init(gen, cfg.d_frontend, cfg.d_model, dt, device)
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": dense_init(gen, cfg.d_model, cfg.vocab, dt, device)}
     params["periods"] = {f"slot{si}": init_block(gen, cfg, kind, device, (cfg.n_periods,))
@@ -111,23 +130,41 @@ def _period(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
 def _apply_block(kind: str, p: Dict, x: torch.Tensor, cfg: ArchConfig
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Residual block application. Returns (x, aux_loss)."""
-    if kind not in ATTN_KINDS:
-        raise _not_ported(f"block kind {kind!r}")
     aux = torch.zeros((), device=x.device)
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
-    x = x + attention_block(
-        p["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-        head_dim=cfg.hd, rope_theta=cfg.rope_theta,
-        window=cfg.window if kind == "local_attn" else 0,
-        q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk, f32_streams=cfg.attn_f32_streams)
-    h2 = rmsnorm(x, p["norm2"], cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], h2, cfg.mlp_act), aux
+    if kind in ATTN_KINDS:
+        x = x + attention_block(
+            p["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.hd, rope_theta=cfg.rope_theta,
+            window=cfg.window if kind == "local_attn" else 0,
+            q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk, f32_streams=cfg.attn_f32_streams)
+        h2 = rmsnorm(x, p["norm2"], cfg.norm_eps)
+        if kind == "attn_moe":
+            y, aux = _moe(p["moe"], h2, cfg)
+            return x + y, aux
+        return x + mlp_apply(p["mlp"], h2, cfg.mlp_act), aux
+    if kind == "rglru":
+        x = x + rglru_block(p["rglru"], h)
+        return x + mlp_apply(p["mlp"], rmsnorm(x, p["norm2"], cfg.norm_eps), cfg.mlp_act), aux
+    if kind == "mlstm":
+        return x + mlstm_block(p["mlstm"], h, cfg.n_heads, cfg.mlstm_chunk), aux
+    if kind == "slstm":
+        return x + slstm_block(p["slstm"], h, cfg.n_heads), aux
+    raise ValueError(kind)
+
+
+def _moe(p: Dict, x: torch.Tensor, cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    return moe_apply(p, x, top_k=cfg.top_k, act=cfg.mlp_act, n_experts=cfg.n_experts,
+                     capacity_factor=cfg.capacity_factor,
+                     n_experts_padded=cfg.n_experts_padded, fsdp_experts=cfg.fsdp_experts)
 
 
 def _embed(params: Dict, batch: Dict, cfg: ArchConfig) -> torch.Tensor:
+    x = params["embed"]["w_tok"][batch["tokens"]]
     if cfg.frontend:
-        raise _not_ported(f"the {cfg.frontend!r} frontend")
-    return params["embed"]["w_tok"][batch["tokens"]]
+        front = batch["frontend_embeds"].to(x.dtype) @ params["embed"]["w_front"]
+        x = torch.cat([front, x], dim=1)
+    return x
 
 
 def _unembed(params: Dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -137,7 +174,8 @@ def _unembed(params: Dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 
 def forward(params: Dict, batch: Dict, cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full forward: batch {tokens [B,S]} -> (logits [B,S,V], aux)."""
+    """Full forward: batch {tokens [B,S], frontend_embeds?} -> (logits, aux).
+    With a frontend the logits cover its n_frontend_tokens positions too."""
     x = _embed(params, batch, cfg)
     aux = torch.zeros((), device=x.device)
     for i in range(cfg.n_periods):
@@ -164,12 +202,19 @@ def prefill_step(params: Dict, batch: Dict, cfg: ArchConfig) -> Tuple[torch.Tens
 
 def _init_block_cache(kind: str, cfg: ArchConfig, batch: int, seq_len: int, dt, device,
                       lead: Tuple[int, ...] = ()) -> Dict:
-    if kind == "attn_mlp":
+    if kind in ("attn_mlp", "attn_moe"):
         return init_kv_cache(batch, seq_len, cfg.n_kv_heads, cfg.hd, dt, device, lead)
     if kind == "local_attn":
         return init_kv_cache(batch, min(cfg.window, seq_len), cfg.n_kv_heads, cfg.hd, dt,
                              device, lead)
-    raise _not_ported(f"block kind {kind!r}")
+    if kind == "rglru":
+        return rglru_init_state(batch, cfg.d_rnn or cfg.d_model, cfg.conv_width, dt, device,
+                                lead)
+    if kind == "mlstm":
+        return mlstm_init_state(batch, cfg.d_model, cfg.n_heads, device, lead)
+    if kind == "slstm":
+        return slstm_init_state(batch, cfg.d_model, device, lead)
+    raise ValueError(kind)
 
 
 def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device="cuda") -> Dict[str, Any]:
@@ -183,8 +228,8 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device="cuda") -> Dict
 
 
 def _leaves(cache: Dict[str, Any]):
-    """(leaf, batch axis) for every cache tensor: period leaves carry the
-    period axis first."""
+    """(leaf, batch axis) for every cache tensor (KV and recurrent state):
+    period leaves carry the period axis first."""
     out = []
     for blk in cache["periods"].values():
         out += [(leaf, 1) for leaf in blk.values()]
@@ -206,27 +251,57 @@ def reset_cache_rows(cache: Dict[str, Any], fresh: Dict[str, Any],
     return cache
 
 
+def _freeze_state_rows(new_state: Dict, old_state: Dict,
+                       active: Optional[torch.Tensor]) -> Dict:
+    """Write ``new_state`` into ``old_state`` in place, except the rows
+    where ``active`` [B] is False, which keep their old values (recurrent
+    state leaves are [B, ...]); returns ``old_state``."""
+    for key, new in new_state.items():
+        old = old_state[key]
+        if active is not None:
+            keep = torch.as_tensor(active, device=new.device)
+            new = torch.where(keep.reshape((-1,) + (1,) * (new.ndim - 1)), new, old)
+        old.copy_(new)
+    return old_state
+
+
 def _decode_block(kind: str, p: Dict, x: torch.Tensor, cache: Dict, pos, cfg: ArchConfig,
                   active: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
-    if kind not in ATTN_KINDS:
-        raise _not_ported(f"block kind {kind!r}")
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
-    y, cache = attention_decode(
-        p["attn"], h, cache, pos, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-        head_dim=cfg.hd, rope_theta=cfg.rope_theta,
-        window=cfg.window if kind == "local_attn" else 0, active=active)
-    x = x + y
-    h2 = rmsnorm(x, p["norm2"], cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], h2, cfg.mlp_act), cache
+    if kind in ATTN_KINDS:
+        y, cache = attention_decode(
+            p["attn"], h, cache, pos, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.hd, rope_theta=cfg.rope_theta,
+            window=cfg.window if kind == "local_attn" else 0, active=active)
+        x = x + y
+        h2 = rmsnorm(x, p["norm2"], cfg.norm_eps)
+        if kind == "attn_moe":
+            return x + _moe(p["moe"], h2, cfg)[0], cache
+        return x + mlp_apply(p["mlp"], h2, cfg.mlp_act), cache
+    if kind == "rglru":
+        y, new = rglru_block_decode(p["rglru"], h, cache)
+        x = x + y
+        x = x + mlp_apply(p["mlp"], rmsnorm(x, p["norm2"], cfg.norm_eps), cfg.mlp_act)
+    elif kind == "mlstm":
+        y, new = mlstm_block_decode(p["mlstm"], h, cache, cfg.n_heads)
+        x = x + y
+    elif kind == "slstm":
+        y, new = slstm_block_decode(p["slstm"], h, cache, cfg.n_heads)
+        x = x + y
+    else:
+        raise ValueError(kind)
+    return x, _freeze_state_rows(new, cache, active)
 
 
 def decode_step(params: Dict, cache: Dict, batch: Dict, pos, cfg: ArchConfig,
                 active: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
     """One-token decode. batch {tokens [B,1]}; pos: a position shared by
-    the batch, or a [B] vector of per-request positions.
+    the batch, or a [B] vector of per-request positions (recurrent blocks
+    are position-free).
 
-    active: optional bool [B]; rows with active=False write no KV entry.
-    Updates ``cache`` in place and returns (logits [B,1,V], cache)."""
+    active: optional bool [B]; rows with active=False advance no cache (KV
+    entry or recurrent state). Updates ``cache`` in place and returns
+    (logits [B,1,V], cache)."""
     x = params["embed"]["w_tok"][batch["tokens"]]
     for i in range(cfg.n_periods):
         slot_params = _period(params["periods"], i)
@@ -276,8 +351,9 @@ def rollback_cache_rows(cache: Dict, keep_len, rows) -> Dict:
     The speculative-decode rollback: a verify launch writes K+1 KV entries
     per drafting row, and zeroing the rejected suffix restores the state a
     never-speculated session holds. Valid only for position-indexed KV
-    caches (``attn_mlp``); the ring buffer of ``local_attn`` cannot roll
-    back (`serve.runners.lm` gates speculation off for it)."""
+    caches (``attn_mlp`` / ``attn_moe``); recurrent state and the ring
+    buffer of ``local_attn`` cannot roll back (`serve.runners.lm` gates
+    speculation off for them)."""
     for leaf, axis in _leaves(cache):
         keep_len = torch.as_tensor(keep_len, device=leaf.device).long()
         rows = torch.as_tensor(rows, dtype=torch.bool, device=leaf.device)

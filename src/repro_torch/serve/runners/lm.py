@@ -12,8 +12,9 @@ design. In short:
   token) or one `decode_chunk` (prefilling rows take up to the budget's
   chunk, decode rows one, speculating rows one plus their draft), with the
   width bucketed to a power of two as in JAX. Free slots ride along with
-  ``active=False``. A finished slot's rows are reset from a separate fresh
-  cache before its next occupant, and rejected draft positions are zeroed
+  ``active=False``. A finished slot's rows (KV entries and recurrent
+  state) are reset from a separate fresh cache before its next occupant,
+  and rejected draft positions are zeroed
   (`transformer.rollback_cache_rows`), so a request sees the numerics of a
   solo run whatever joins it, and speculation never changes a stream.
 
@@ -59,9 +60,13 @@ def quantized_lm_params(params, bits: int):
     JAX selects leaves whose `keystr` path holds ".w" or "w_" and no
     "norm", with two or more dims, and gives each one scale over the whole
     (period-stacked) leaf. Its paths read ``['periods']['slot0']['mlp']
-    ['w_in']``, so the selection is ``embed.w_tok`` and the MLP matrices;
-    the attention projections and the LM head stay fp32. This is matched
-    here on purpose (the reference's behaviour, not its docstring's)."""
+    ['w_in']`` (``['tail'][0][...]`` in the tail), so the selection is
+    ``embed.w_tok`` / ``w_front`` and every ``w_*`` matrix (MLP, MoE router
+    and experts, RG-LRU, mLSTM ``w_up`` / ``w_gate`` / ``w_if`` / ``w_down``,
+    sLSTM ``w_in`` / ``w_out``); the attention and mLSTM ``wq`` / ``wk`` /
+    ``wv`` / ``wo`` projections, ``lam``, ``r``, the biases and the LM head
+    stay fp32. This is matched here on purpose (the reference's behaviour,
+    not its docstring's)."""
     def walk(path, x):
         if isinstance(x, dict):
             return {k: walk(path + (k,), v) for k, v in x.items()}

@@ -22,7 +22,8 @@ chosen K splits bit-identical;
 flash attention within 5e-5 in fp32 (5e-5 of the largest output where
 each head's V is offset by 64 * head) and within one bf16 step of the
 largest output in bf16, two calls bit-identical; LM logits on the card
-within 1e-3 of the CPU's. Adaptive-precision serving of TINY on the card:
+within 1e-3 of the CPU's (a dense LM, a reduced MoE and a reduced
+recurrentgemma), and two card runs of the MoE bit-identical. Adaptive-precision serving of TINY on the card:
 each request's logits bit-identical to the single-precision engine's at
 the precision it was served, pinned requests at fp32, the served
 precisions equal to the CPU's, one fused pipeline's launches per occupied
@@ -401,10 +402,12 @@ def test_training_grads_match_cpu(cuda, name):
 # LM head and serve_lm_w4's shape, then ragged shapes
 QWEN_INT4 = [(4, 2560, 2560), (512, 2560, 2560), (4, 2560, 6912), (512, 2560, 6912),
              (4, 6912, 2560), (512, 6912, 2560), (4, 2560, 151936), (4, 2560, 256)]
+# serve_lm_w4 --full's shape for the other archs: K = their d_model
+ARCH_INT4 = [(4, k, 256) for k in (768, 1536, 2048, 3072, 4096, 5120, 6144)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", QWEN_INT4 + [(17, 96, 130), (5, 33, 18)])
+@pytest.mark.parametrize("m,k,n", QWEN_INT4 + ARCH_INT4 + [(17, 96, 130), (5, 33, 18)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_int4_matmul_matches_plain(cuda, m, k, n, dtype):
     qt = quantize_int4(_normal(29, (k, n)).to(cuda))
@@ -541,6 +544,65 @@ def test_lm_decode_chunk_matches_cpu(cuda):
            "tail": ()}
     toks = torch.from_numpy(np.random.default_rng(37).integers(0, 1000, (3, 6)))
     pos0, take = torch.tensor([0, 2, 5]), torch.tensor([6, 4, 1])
+    _, ref, _ = tf.decode_chunk(params, tf.init_cache(cfg, 3, 16, "cpu"), toks, pos0, take, cfg)
+    _, out, _ = tf.decode_chunk(gpu, tf.init_cache(cfg, 3, 16, cuda), toks.to(cuda),
+                                pos0.to(cuda), take.to(cuda), cfg)
+    for row in range(3):
+        cols = slice(0, int(take[row]))
+        assert (out[row, cols].cpu() - ref[row, cols]).abs().max().item() <= 1e-3
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_to(v, device) for v in tree)
+    return tree.to(device)
+
+
+# reduced granite-moe-3b (40 experts padded to 48, top-8 -> 12 padded to 16,
+# top-4) and recurrentgemma-2b (one period and its 2-layer RG-LRU tail)
+MOE_SMALL = dict(name="moe-small", family="moe", n_layers=2, d_model=256, n_heads=4,
+                 n_kv_heads=2, head_dim=64, d_ff=128, vocab=1000, mlp_act="swiglu",
+                 pattern=("attn_moe",), n_experts=12, top_k=4, moe_d_ff=128,
+                 n_experts_padded=16, dtype="float32", remat="none")
+RG_SMALL = dict(name="rg-small", family="hybrid", n_layers=5, d_model=256, n_heads=4,
+                n_kv_heads=1, head_dim=64, d_ff=512, vocab=1000, mlp_act="geglu",
+                pattern=("rglru", "rglru", "local_attn"), tail=("rglru", "rglru"), window=8,
+                d_rnn=256, tie_embeddings=True, dtype="float32", remat="none")
+
+
+@pytest.mark.cuda
+def test_moe_decode_is_bit_identical_across_card_runs(cuda):
+    """The combine sums each token's k expert rows in a fixed order with no
+    atomics, so two card runs agree bit for bit; both within 1e-3 of the
+    CPU."""
+    cfg = ArchConfig(**MOE_SMALL)
+    params = tf.init_params(torch.Generator().manual_seed(1), cfg, "cpu")
+    gpu = _to(params, cuda)
+    toks = torch.from_numpy(np.random.default_rng(38).integers(0, 1000, (4, 6)))
+    pos0, take = torch.tensor([0, 2, 5, 0]), torch.tensor([6, 4, 1, 6])
+    runs = [tf.decode_chunk(gpu, tf.init_cache(cfg, 4, 16, cuda), toks.to(cuda), pos0.to(cuda),
+                            take.to(cuda), cfg)[1] for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+    _, ref, _ = tf.decode_chunk(params, tf.init_cache(cfg, 4, 16, "cpu"), toks, pos0, take, cfg)
+    for row in range(4):
+        cols = slice(0, int(take[row]))
+        assert (runs[0][row, cols].cpu() - ref[row, cols]).abs().max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_recurrentgemma_matches_cpu(cuda):
+    """RG-LRU scan and decode, local attention's ring buffer and the tail:
+    forward and decode_chunk logits on the card within 1e-3 of the CPU's."""
+    cfg = ArchConfig(**RG_SMALL)
+    params = tf.init_params(torch.Generator().manual_seed(2), cfg, "cpu")
+    gpu = _to(params, cuda)
+    toks = torch.from_numpy(np.random.default_rng(39).integers(0, 1000, (3, 12)))
+    ref, _ = tf.forward(params, {"tokens": toks}, cfg)
+    out, _ = tf.forward(gpu, {"tokens": toks.to(cuda)}, cfg)
+    assert (out.cpu() - ref).abs().max().item() <= 1e-3
+    pos0, take = torch.tensor([0, 3, 1]), torch.tensor([12, 9, 5])
     _, ref, _ = tf.decode_chunk(params, tf.init_cache(cfg, 3, 16, "cpu"), toks, pos0, take, cfg)
     _, out, _ = tf.decode_chunk(gpu, tf.init_cache(cfg, 3, 16, cuda), toks.to(cuda),
                                 pos0.to(cuda), take.to(cuda), cfg)

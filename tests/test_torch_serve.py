@@ -115,7 +115,10 @@ def test_import_leaves_jax_and_reference_out():
             " 'repro_torch.kernels.int4_matmul.ops',"
             " 'repro_torch.kernels.flash_attention.ops', 'repro_torch.obs',"
             " 'repro_torch.serve.precision', 'repro_torch.launch.quant_sparsity_study',"
-            " 'repro_torch.launch.quickstart'} <= set(names)\n"
+            " 'repro_torch.launch.quickstart', 'repro_torch.models.moe',"
+            " 'repro_torch.models.rglru', 'repro_torch.models.xlstm',"
+            " 'repro_torch.models.frontends', 'repro_torch.configs.granite_moe_3b'}"
+            " <= set(names)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'repro' or m.startswith('repro.'))\n"
             "assert not bad, bad\n"
