@@ -33,7 +33,11 @@ Run from the root of a checkout. Phases, one line or block each:
 6. train   — surrogate-gradient BPTT of the full-width spiking VGG9, fp32
              and int4 QAT, AdamW + warmup-cosine: one step's loss and
              gradients on the card against the CPU on the same batch, then 5
-             steps at batch 32 (finite loss, median ms per step) and the
+             steps at batch 32 from one state four times, in turns under
+             the training step's deterministic settings (runs A, B: losses,
+             parameters and optimizer state must be bit-identical) and with
+             them swapped out (runs C, D: their cost, and whether the
+             default algorithms repeat); finite losses, median ms per step,
              per-layer spikes of the trained weights;
 7. lm      — qwen1.5-4b: (a) at full width and depth (40 layers, 15.8 GB of
              fp32 weights), served in fp32 and int4 (fake-quant) by
@@ -75,8 +79,8 @@ Run from the root of a checkout. Phases, one line or block each:
              `launch.quant_sparsity_study` on the card beside its CPU table
              (every number finite);
 9. family  — the rest of the LM family: (a) granite-moe-3b-a800m at full
-             width and depth (32 layers, 40 experts padded to 48, top-8,
-             14.8 GiB fp32) served as 7a serves qwen, fp32 and int4, with
+             width (40 experts padded to 48, top-8), 8 of its 32 layers
+             (`MOE_LAYERS`), served as 7a serves qwen, fp32 and int4, with
              the decode step's bound over every expert and over the routed
              ones; (b) recurrentgemma-2b (26 layers, the 2-layer RG-LRU
              tail, local attention with window 2048) and xlstm-125m at full
@@ -91,7 +95,28 @@ Run from the root of a checkout. Phases, one line or block each:
              router-logit gap exceeds 1e-4; (d) `launch/serve_lm_w4.py
              --arch A --full` for the nine archs other than qwen, each one
              launch of the int4 matmul at x [4, d_model], held against its
-             plain version, each model freed before the next loads.
+             plain version, each model freed before the next loads;
+10. fleet  — the serving fleet at full CIFAR10 width: (a) 3 in-process
+             replicas (`make_router`) over one card `SNNRunner`, replica 0
+             wedged from its second step and replica 1 poisoning slot 0 at
+             its third, phase 4's 17 requests in three waves: both replicas
+             drained, the poisoned request `failed` with nothing streamed,
+             every `ok` result (logits, spikes, skip rates, occupancy trace
+             and its partial stream) bit-identical to phase 4's solo engine,
+             launches of kernels 1-3 equal to the replicas' forwards; (b) 2
+             subprocess workers on the card from one `snn_spec`, worker 0
+             the trace twice, a clean pass and one whose worker 0 is
+             killed after the first router step: one drain, its requests
+             replayed, every result bit-identical to an in-process engine
+             over `build_runner(spec)` and to phase 4; handshake seconds,
+             host ms per router step in each pass, nvidia-smi's memory
+             before the spawn and with three CUDA contexts up; (c) qwen1.5-4b at full width and depth 2 in 2
+             workers, worker 0 killed mid-decode, 7a's trace: every stream
+             equal to the in-process engine's over the same `lm_spec`; (d)
+             the CLI side by side: `--replicas 3 --fault-plan 0=wedge@1`
+             (its drain line) and `--workers 2`, one slot each, the same
+             request lines, and `--workers 1 --replicas 2` refused with its
+             rule's message.
 
 Phase 3 holds `spike_matmul_mapped` at spike densities 0.1, 0.33 and 1.0:
 within 1e-4 of the plain product, bit for bit the plain k-ascending sum
@@ -143,6 +168,7 @@ non-zero before it. Every per-shape row and serving figure also goes to
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -978,7 +1004,7 @@ def check_serving(torch, name, cfg, params_cpu, errors):
     skip = {k: float(np.mean([r.stats["batch_skip_rate"][k] for r in res]))
             for k in res[0].stats["batch_skip_rate"]}
     return {"totals": gpu_tot, "skip": skip, "ms_per_step": seconds / steps * 1e3,
-            "launches": launches}
+            "launches": launches, "results": res}
 
 
 def profile_serving(torch, name, cfg, params_cpu, step_ms):
@@ -1126,32 +1152,69 @@ def check_training(torch, name, cfg, errors):
     print(f"train {name}: batch 8 card vs CPU |dloss|={d_loss:.3e} (loss {loss.item():.6f}); "
           f"worst gradient rel L2 {worst} {rel[worst]:.3e}")
 
-    # 5 steps at batch 32
+    # 5 steps at batch 32, twice from one state with the training step's
+    # deterministic settings (the two runs must agree bit for bit), then
+    # twice with them swapped out, for their cost and to show what they fix
+    from repro_torch.train import train_step as train_step_mod
     steps = 5
     opt = adamw(weight_decay=0.0)
     step = make_train_step(loss_fn, opt, warmup_cosine(3e-3, 20, steps))
-    state = init_train_state(params, opt)
-    losses, times = [], []
-    for i in range(steps):
-        b = image_batch(0, i, 32, num_classes=cfg.num_classes, hw=cfg.img_hw, device="cuda")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, metrics = step(state, b)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        losses.append(metrics["loss"].item())
-    if not all(math.isfinite(v) for v in losses):
-        errors.append(f"{name} train: losses {losses}")
+    state0 = init_train_state(params, opt)
     test = image_batch(77, 0, 64, num_classes=cfg.num_classes, hw=cfg.img_hw, device="cuda")
-    with torch.no_grad():
-        _, counts = vgg9_forward(state["params"], test["images"], cfg)
-    spikes = {k: float(v) for k, v in counts.items()}
-    print(f"train {name}: {steps} steps at batch 32, losses {[round(v, 6) for v in losses]}, "
-          f"host ms/step (synchronized) {[round(v, 3) for v in times]}, "
-          f"median {float(np.median(times)):.3f}")
-    return {"d_loss": d_loss, "worst_grad": [worst, rel[worst]], "losses": losses,
-            "ms_per_step": times, "median_ms": float(np.median(times)),
-            "spikes_after": spikes}
+
+    def run():
+        state, losses, times = state0, [], []
+        for i in range(steps):
+            b = image_batch(0, i, 32, num_classes=cfg.num_classes, hw=cfg.img_hw,
+                            device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, b)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(metrics["loss"].item())
+        with torch.no_grad():
+            _, counts = vgg9_forward(state["params"], test["images"], cfg)
+        return {"state": state, "losses": losses, "ms": times,
+                "median_ms": float(np.median(times)),
+                "spikes": {k: float(v) for k, v in counts.items()}}
+
+    runs, deterministic = {}, train_step_mod.deterministic
+    try:
+        for det, default in ("AC", "BD"):       # in turns
+            runs[det] = run()
+            train_step_mod.deterministic = contextlib.nullcontext
+            runs[default] = run()
+            train_step_mod.deterministic = deterministic
+    finally:
+        train_step_mod.deterministic = deterministic
+    same = {pair: tree_equal(torch, runs[pair[0]]["state"], runs[pair[1]]["state"])
+            and runs[pair[0]]["losses"] == runs[pair[1]]["losses"] for pair in ("AB", "CD")}
+    if not all(math.isfinite(v) for r in runs.values() for v in r["losses"]):
+        errors.append(f"{name} train: losses {[r['losses'] for r in runs.values()]}")
+    if not same["AB"]:
+        errors.append(f"{name} train: two deterministic 5-step runs from one state differ: "
+                      f"losses {runs['A']['losses']} vs {runs['B']['losses']}")
+    for key, r in sorted(runs.items()):
+        print(f"train {name} run {key} ({'deterministic' if key in 'AB' else 'default'}): "
+              f"{steps} steps at batch 32, losses {[round(v, 6) for v in r['losses']]}, "
+              f"host ms/step (synchronized) {[round(v, 3) for v in r['ms']]}, "
+              f"median {r['median_ms']:.3f}, spikes after {sum(r['spikes'].values()):.0f}")
+    print(f"train {name}: deterministic runs A, B bit-identical (losses, params, optimizer "
+          f"state) {same['AB']}; default runs C, D bit-identical {same['CD']}")
+    spikes = runs["A"]["spikes"]
+    return {"d_loss": d_loss, "worst_grad": [worst, rel[worst]], "losses": runs["A"]["losses"],
+            "ms_per_step": runs["A"]["ms"], "median_ms": runs["A"]["median_ms"],
+            "spikes_after": spikes, "bit_identical": same,
+            "runs": {k: {kk: v for kk, v in r.items() if kk != "state"}
+                     for k, r in runs.items()}}
+
+
+def tree_equal(torch, a, b) -> bool:
+    """Two trees of tensors bit for bit (keys, dtypes, shapes and bits)."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(tree_equal(torch, a[k], b[k]) for k in a)
+    return a.dtype == b.dtype and torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------
@@ -1269,7 +1332,7 @@ def routed_bound_ms(torch, cfg, params, cache, step) -> float:
 
 def check_lm_serving(torch, cfg, device, errors, trace=None, speculate=LM_SPECULATE,
                      solo=(6, 1), precisions=(0, 4), smi=""):
-    """Phases 7a and 9: ``cfg`` at its full width and depth served on
+    """Phases 7a and 9: ``cfg`` (full width; 9a cuts the depth) served on
     ``device`` in each of ``precisions`` (0 = fp32, 4 = int4 fake-quant) by
     EngineCore + LMRunner: 4 slots, prefill chunk 8, speculation k =
     ``speculate``, the ``trace`` (`lm_trace` by default). Every request
@@ -1908,6 +1971,11 @@ FAMILY = ("granite-34b", "starcoder2-15b", "minitron-8b", "recurrentgemma-2b",
           "granite-moe-3b-a800m", "xlstm-125m")
 # phase 9c: the archs held against the CPU, at full width and this many
 # periods (plus the tail)
+# 9a's depth: a quarter of granite-moe's 32 layers. At full depth 9a took
+# 133.5-164.5 s of host-bound engine steps on an H100, which with phase 10
+# put the script past ~8.5 minutes; every layer is the same block, so the
+# cut runs every op the full model runs.
+MOE_LAYERS = 8
 CPU_PERIODS = {"granite-moe-3b-a800m": 2, "recurrentgemma-2b": 1, "xlstm-125m": 1,
                "phi-3-vision-4.2b": 2, "musicgen-large": 2}
 # an expert set may differ between card and CPU only where the CPU's
@@ -2047,15 +2115,16 @@ def check_arch_against_cpu(torch, cfg, errors, batch=2):
 
 
 def check_family(torch, errors, smi):
-    """Phase 9: (a) granite-moe-3b and (b) the two recurrent archs served at
-    full width and depth, (c) five archs' card against the CPU at full
+    """Phase 9: (a) granite-moe-3b at full width, `MOE_LAYERS` deep, and (b)
+    the two recurrent archs at full width and depth, served; (c) five archs'
+    card against the CPU at full
     width, (d) serve_lm_w4 --full for each arch but qwen; the seconds of
     each part."""
     from repro_torch.configs import get_arch
     fp32 = lambda arch, **kw: get_arch(arch).with_(dtype="float32", **kw)
     family = {"serve": {}, "cpu": {}, "serve_lm_w4": {}}
     t = time.perf_counter()
-    moe_cfg = fp32("granite-moe-3b-a800m")
+    moe_cfg = fp32("granite-moe-3b-a800m", n_layers=MOE_LAYERS)
     family["serve"][moe_cfg.name] = check_lm_serving(torch, moe_cfg, "cuda", errors, smi=smi)
     family["seconds_a"], t = time.perf_counter() - t, time.perf_counter()
     for arch in ("recurrentgemma-2b", "xlstm-125m"):
@@ -2073,7 +2142,305 @@ def check_family(torch, errors, smi):
     return family
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the serving fleet
+# ---------------------------------------------------------------------------
+
+# replica 0 wedges from its second step, replica 1 poisons slot 0 at its third
+FLEET_PLAN = "0=wedge@1,1=nan@2:slot=0"
+# what a request's own result holds (the batch-share energies depend on who
+# else rode its batch)
+FLEET_STATS = ("out_spikes", "in_spikes", "spike_total", "skip_rate", "ts_occupancy",
+               "energy_j", "latency_s", "precision")
+
+
+def same_result(a, b) -> bool:
+    """Bit for bit: status, logits (dtype and bits) and `FLEET_STATS`."""
+    import numpy as np
+    return (a.status == b.status and a.outputs.dtype == b.outputs.dtype
+            and np.array_equal(a.outputs, b.outputs)
+            and all(a.stats[k] == b.stats[k] for k in FLEET_STATS))
+
+
+def drive_fleet(router, rids):
+    """Step the router until every request has its result; returns
+    (results in order, each request's partial stream, router steps)."""
+    streams = {rid: router.poll_partial(rid) for rid in rids}
+    steps = 0
+    while router._outstanding:
+        router.step()
+        steps += 1
+        for rid in rids:
+            streams[rid] += router.poll_partial(rid)
+    return [router.poll(rid) for rid in rids], streams, steps
+
+
+def fleet_forwards(router) -> int:
+    """Pipeline forwards the in-process replicas ran: each replica's
+    session steps that its fault plan did not wedge or raise."""
+    total = 0
+    for rep in router.replicas:
+        sess = rep.core._session
+        if sess is not None:
+            total += sum(1 for i in range(sess.step_idx)
+                         if sess.plan.active("wedge", i) is None
+                         and sess.plan.active("raise", i) is None)
+    return total
+
+
+def gpu_memory(smi_query):
+    """nvidia-smi's answer to ``--query-<smi_query>`` (csv, no header)."""
+    try:
+        out = subprocess.run(["nvidia-smi", f"--query-{smi_query}", "--format=csv,noheader"],
+                             capture_output=True, text=True)
+    except FileNotFoundError:
+        return "nvidia-smi not found"
+    return out.stdout.strip() if out.returncode == 0 else f"nvidia-smi rc {out.returncode}"
+
+
+def check_fleet_inproc(torch, cfg, params_cpu, solo, errors):
+    """10a: 3 in-process replicas over one card `SNNRunner`, `FLEET_PLAN`,
+    phase 4's 17 requests submitted in three waves (a router step after
+    each of the first two), so that the wedge and the poison find work."""
+    from repro_torch.kernels import CUDA_LAUNCHES, reset_cuda_launches
+    from repro_torch.serve.api import EngineConfig
+    from repro_torch.serve.core import all_finite
+    from repro_torch.serve.faults import parse_fleet_plan
+    from repro_torch.serve.router import make_router
+    from repro_torch.serve.runners.snn import SNNRunner
+    params = {k: {kk: v.to("cuda") for kk, v in leaf.items()} for k, leaf in params_cpu.items()}
+    imgs = make_requests(torch, cfg)
+    router = make_router(SNNRunner(cfg, params, device="cuda"), 3, EngineConfig(slots=SLOTS),
+                         plans=parse_fleet_plan(FLEET_PLAN))
+    reset_cuda_launches()
+    t0 = time.perf_counter()
+    rids, per = [], -(-len(imgs) // 3)
+    for w in range(3):
+        rids += [router.submit(img, source="sparse" if (w * per + i) % 2 == 0 else "dense")
+                 for i, img in enumerate(imgs[w * per:(w + 1) * per])]
+        if w < 2:
+            router.step()
+    res, streams, _ = drive_fleet(router, rids)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(CUDA_LAUNCHES)
+    steps = router.stats()["router_steps"]
+    forwards, n_spiking = fleet_forwards(router), len(cfg.conv_channels) - 1
+    want = dict.fromkeys(CUDA_LAUNCHES, 0)
+    want.update({"dense_conv_lif": forwards, "spike_matmul_mapped": n_spiking * forwards,
+                 "lif_epilogue_scan": (n_spiking + 2) * forwards})
+    if launches != want or forwards == 0:
+        errors.append(f"10a: CUDA_LAUNCHES {launches} != {want} over {forwards} forwards")
+    conditions = sorted(e[2] for e in router.drain_log)
+    if conditions != ["poisoned", "wedged"] or [e[1] for e in router.drain_log] != [1, 0]:
+        errors.append(f"10a: drain log {[e[:4] for e in router.drain_log]}")
+    failed = [r for r in res if r.status == "failed"]
+    if len(failed) != 1 or any(r.status not in ("ok", "failed") for r in res):
+        errors.append(f"10a: statuses {[r.status for r in res]}")
+    for r in failed:
+        # retired with what had streamed before the poison: for the SNN a
+        # request lives one step, so nothing, and never a NaN
+        if streams[r.request_id] or not all_finite(streams[r.request_id]) \
+                or all_finite(r.outputs):
+            errors.append(f"10a: poisoned request {r.request_id} streamed "
+                          f"{streams[r.request_id]} outputs {r.outputs}")
+    mismatch = [r.request_id for r, want_r in zip(res, solo)
+                if r.status == "ok" and not (
+                    same_result(r, want_r)
+                    and streams[r.request_id] == [
+                        {k: v[t] for k, v in want_r.stats["ts_occupancy"].items()}
+                        for t in range(cfg.timesteps)])]
+    if mismatch:
+        errors.append(f"10a: ok results not bit-identical to phase 4's solo engine: {mismatch}")
+    stats = router.stats()
+    print(f"fleet 10a: 3 replicas, plan {FLEET_PLAN!r}, {len(res)} requests in 3 waves: "
+          f"{stats['ok']} ok, {stats['failed']} failed, rerouted {stats['rerouted']}; drains "
+          + "; ".join(f"@{e[0]} replica {e[1]} {e[2]} re-routed {e[3]}" for e in router.drain_log)
+          + f"; {steps} router steps, host {seconds / steps * 1e3:.3f} ms per router step; "
+          f"ok results bit-identical to phase 4's solo engine {not mismatch}; "
+          f"launches {launches} ({forwards} forwards)")
+    return {"launches": launches, "forwards": forwards, "router_steps": steps,
+            "ms_per_router_step": seconds / steps * 1e3, "seconds": seconds,
+            "drain_log": [e[:4] for e in router.drain_log], "statuses": [r.status for r in res],
+            "bit_identical": not mismatch}
+
+
+def check_fleet_workers(torch, cfg, solo, errors):
+    """10b: 2 subprocess workers on the one card, built from one
+    `snn_spec`. The trace runs twice: a clean pass (the workers' first
+    steps load the kernel library and the CUDA libraries' kernels), then a
+    pass whose worker 0 is killed after the first router step."""
+    from repro_torch.serve.api import EngineConfig
+    from repro_torch.serve.core import EngineCore
+    from repro_torch.serve.router import make_worker_fleet
+    from repro_torch.serve.worker import build_runner, snn_spec
+    spec = snn_spec(cfg, seed=0, device="cuda")
+    config = EngineConfig(slots=SLOTS)
+    imgs = make_requests(torch, cfg)
+    sources = ["sparse" if i % 2 == 0 else "dense" for i in range(len(imgs))]
+    inproc = EngineCore(build_runner(spec), config)
+    ids = [inproc.submit(img, source=src) for img, src in zip(imgs, sources)]
+    done = inproc.run_until_complete()
+    reference = [done[i] for i in ids]
+    parent_memory = gpu_memory("gpu=memory.used")
+    t0 = time.perf_counter()
+    router = make_worker_fleet(spec, 2, config)
+    spawn_s = time.perf_counter() - t0
+    passes = {}
+    try:
+        handshakes = [r.transport.handshake_s for r in router.replicas]
+        memory = gpu_memory("gpu=memory.used,memory.total")
+        for name in ("clean", "kill"):
+            steps0 = router.stats()["router_steps"]
+            t1 = time.perf_counter()
+            rids = [router.submit(img, source=src) for img, src in zip(imgs, sources)]
+            in_flight = None
+            if name == "kill":
+                router.step()
+                victim = router.replicas[0].transport
+                in_flight = victim.in_flight()
+                victim.kill()
+            res, _, _ = drive_fleet(router, rids)
+            steps = router.stats()["router_steps"] - steps0
+            passes[name] = {"ms_per_router_step": (time.perf_counter() - t1) / steps * 1e3,
+                            "router_steps": steps, "in_flight_at_kill": in_flight,
+                            "bad": [r.request_id for r, a, b in zip(res, reference, solo)
+                                    if r.status != "ok" or not same_result(r, a)
+                                    or not same_result(r, b)]}
+    finally:
+        router.close()
+    stats = router.stats()
+    killed = passes["kill"]
+    if not killed["in_flight_at_kill"] or len(router.drain_log) != 1 or stats["rerouted"] < 1:
+        errors.append(f"10b: in flight at the kill {killed['in_flight_at_kill']}, drains "
+                      f"{[e[:4] for e in router.drain_log]}, rerouted {stats['rerouted']}")
+    bad = {name: p["bad"] for name, p in passes.items() if p["bad"]}
+    if bad:
+        errors.append(f"10b: results not bit-identical to the in-process engine over "
+                      f"build_runner(spec) and phase 4's: {bad}")
+    print(f"fleet 10b: 2 workers spawned in {spawn_s:.2f} s (handshakes "
+          f"{', '.join(f'{h:.2f}' for h in handshakes)} s); clean pass "
+          f"{passes['clean']['router_steps']} router steps at "
+          f"{passes['clean']['ms_per_router_step']:.3f} ms host each (the workers' first "
+          f"steps); kill pass: worker 0 killed after router step 1 with "
+          f"{killed['in_flight_at_kill']} requests in flight, {killed['router_steps']} router "
+          f"steps at {killed['ms_per_router_step']:.3f} ms; {stats['ok']} ok, rerouted "
+          f"{stats['rerouted']}, drains {[e[:4] for e in router.drain_log]}; both passes "
+          f"bit-identical to the in-process engine and phase 4 {not bad}")
+    print(f"fleet 10b: nvidia-smi memory.used {parent_memory} with this process's context, "
+          f"{memory.split(',')[0]} with 3 CUDA contexts up (this process + 2 workers; "
+          f"memory.total {memory.split(',')[-1].strip()})")
+    return {"spawn_s": spawn_s, "handshake_s": handshakes, "memory_parent": parent_memory,
+            "memory": memory, "passes": passes, "rerouted": stats["rerouted"],
+            "bit_identical": not bad}
+
+
+def check_fleet_lm(torch, cfg, errors, kill_after=6):
+    """10c: qwen1.5-4b at full width, depth 2, in 2 workers; worker 0
+    killed mid-decode. Every stream (7a's trace: greedy, sampled, empty and
+    repetitive prompts) equals the in-process engine's over the same
+    `lm_spec`."""
+    from repro_torch.serve.api import EngineConfig
+    from repro_torch.serve.core import EngineCore
+    from repro_torch.serve.router import make_worker_fleet
+    from repro_torch.serve.worker import build_runner, lm_spec
+    spec = lm_spec(cfg, seed=0, max_seq=LM_MAX_SEQ, device="cuda")
+    config = EngineConfig(slots=LM_SLOTS, prefill_chunk=LM_CHUNK)
+    prompts, opts = lm_trace(cfg.vocab)
+    inproc = EngineCore(build_runner(spec), config)
+    ids = [inproc.submit(p, max_new_tokens=LM_NEW, **o) for p, o in zip(prompts, opts)]
+    want_streams = {i: [] for i in ids}
+    while inproc.pending() or inproc.in_flight():
+        inproc.step()
+        for i in ids:
+            want_streams[i] += inproc.poll_partial(i)
+    done = inproc.run_until_complete()
+    want = [(list(done[i].outputs), want_streams[i]) for i in ids]
+    del inproc, done
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    router = make_worker_fleet(spec, 2, config)
+    spawn_s = time.perf_counter() - t0
+    try:
+        handshakes = [r.transport.handshake_s for r in router.replicas]
+        rids = [router.submit(p, max_new_tokens=LM_NEW, **o) for p, o in zip(prompts, opts)]
+        streams = {rid: [] for rid in rids}
+        for _ in range(kill_after):
+            router.step()
+            for rid in rids:
+                streams[rid] += router.poll_partial(rid)
+        victim = router.replicas[0].transport
+        victims = [router.replicas[0].placed[local] for local in victim._live]
+        decoding = [rid for rid in victims if streams[rid]]
+        victim.kill()
+        res, more, _ = drive_fleet(router, rids)
+    finally:
+        router.close()
+    for rid in rids:
+        streams[rid] += more[rid]
+    stats = router.stats()
+    bad = [i for i, (r, (out, stream)) in enumerate(zip(res, want))
+           if r.status != "ok" or list(r.outputs) != out or streams[rids[i]] != stream]
+    if not decoding or len(router.drain_log) != 1 or stats["rerouted"] < 1 or bad:
+        errors.append(f"10c: requests decoding at the kill {decoding}, drains "
+                      f"{[e[:4] for e in router.drain_log]}, rerouted {stats['rerouted']}, "
+                      f"streams differing from the in-process engine {bad}")
+    print(f"fleet 10c: {cfg.name} at full width, depth {cfg.n_layers}, 2 workers (handshakes "
+          f"{', '.join(f'{h:.2f}' for h in handshakes)} s); worker 0 killed after "
+          f"{kill_after} router steps holding {victims} ({decoding} mid-decode); rerouted "
+          f"{stats['rerouted']}; {len(res) - len(bad)}/{len(res)} streams equal the "
+          f"in-process engine's")
+    return {"spawn_s": spawn_s, "handshake_s": handshakes, "victims": victims,
+            "decoding_at_kill": decoding, "rerouted": stats["rerouted"], "differing": bad}
+
+
+def check_fleet_cli(errors):
+    """10d: the CLI's fleet flags as subprocesses, side by side: 3 replicas
+    with replica 0 wedged, 2 workers (one slot per engine in both, so that
+    the wedge finds work and the two print the same request lines), and a
+    refused ``--workers 1 --replicas 2``."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    base = [sys.executable, "-m", "repro_torch.launch.serve", "--workload", "snn"]
+    runs = {"replicas": base + ["--slots", "1", "--replicas", "3", "--fault-plan", "0=wedge@1"],
+            "workers": base + ["--slots", "1", "--workers", "2"],
+            "refused": base + ["--workers", "1", "--replicas", "2"]}
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(v, cwd=ROOT, env=env, text=True, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE) for k, v in runs.items()}
+    outs = {}
+    try:
+        for k, proc in procs.items():
+            out, err = proc.communicate(timeout=300)
+            outs[k] = (proc.returncode, out, err)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    seconds = time.perf_counter() - t0
+    lines = {k: [line for line in outs[k][1].splitlines() if line.startswith("req")]
+             for k in ("replicas", "workers")}
+    drains = [line for line in outs["replicas"][1].splitlines() if line.startswith("drain @step")]
+    message = ("--workers and --replicas are both fleet sizes (subprocess vs in-process "
+               "replicas); pick one")
+    refusal = (outs["refused"][2].strip().splitlines() or [""])[-1]
+    for k in ("replicas", "workers"):
+        if outs[k][0] != 0:
+            errors.append(f"10d {k}: exit {outs[k][0]}: {outs[k][2][-2000:]}")
+    if len(drains) != 1 or len(lines["replicas"]) != 4 or lines["replicas"] != lines["workers"]:
+        errors.append(f"10d: drain lines {drains}; request lines {lines}")
+    if outs["refused"][0] == 0 or message not in outs["refused"][2]:
+        errors.append(f"10d refused: exit {outs['refused'][0]}: {outs['refused'][2][-500:]}")
+    print(f"fleet 10d ({seconds:.1f} s, three CLIs side by side): --replicas 3 --fault-plan "
+          f"0=wedge@1 rc {outs['replicas'][0]}, {drains[0][:90] if drains else 'no drain line'}; "
+          f"--workers 2 rc {outs['workers'][0]}, request lines equal the replicas' "
+          f"{lines['replicas'] == lines['workers']}; --workers 1 --replicas 2 rc "
+          f"{outs['refused'][0]} ({refusal[:80]})")
+    return {k: {"rc": v[0]} for k, v in outs.items()} | {"seconds": seconds}
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs a CUDA device")
@@ -2290,6 +2657,26 @@ def main() -> None:
     if errors:
         fail("; ".join(errors))
 
+    # 10. the serving fleet
+    t10 = time.perf_counter()
+    solo = served["CIFAR10"].pop("results")
+    served["CIFAR10_INT4"].pop("results")
+    fleet = {"inproc": check_fleet_inproc(
+        torch, cfg, init_vgg9(torch.Generator().manual_seed(0), cfg, "cpu"), solo, errors)}
+    fleet["seconds_a"] = time.perf_counter() - t10
+    fleet["workers"] = check_fleet_workers(torch, cfg, solo, errors)
+    fleet["seconds_b"] = time.perf_counter() - t10 - fleet["seconds_a"]
+    torch.cuda.empty_cache()
+    fleet["lm"] = check_fleet_lm(torch, qwen.with_(n_layers=2), errors)
+    fleet["seconds_c"] = time.perf_counter() - t10 - fleet["seconds_a"] - fleet["seconds_b"]
+    fleet["cli"] = check_fleet_cli(errors)
+    fleet["seconds"] = time.perf_counter() - t10
+    print(f"phase 10 fleet: {len(errors)} errors in {fleet['seconds']:.1f} s (10a "
+          f"{fleet['seconds_a']:.1f}, 10b {fleet['seconds_b']:.1f}, 10c "
+          f"{fleet['seconds_c']:.1f}, 10d {fleet['cli']['seconds']:.1f}) [{smi_line}]")
+    if errors:
+        fail("; ".join(errors))
+
     csrc = "src/repro_torch/kernels/{}/csrc/{}.cu"
     sources = {"spike_matmul_mapped": csrc.format("spike_conv", "spike_matmul_mapped"),
                "lif_epilogue_scan": csrc.format("lif_step", "lif_epilogue_scan"),
@@ -2306,11 +2693,11 @@ def main() -> None:
                 "int4_matmul": "src/repro/kernels/int4_matmul/int4_matmul.py:47",
                 "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:71"}
     # launches of each kernel in the runs of its own main paths: serving
-    # (phase 4) and adaptive-precision serving (phase 8a) for the fused
-    # pipeline's kernels, the unfused pipeline (phase 5) for the two it
-    # alone runs
+    # (phase 4), adaptive-precision serving (phase 8a) and the in-process
+    # fleet (phase 10a) for the fused pipeline's kernels, the unfused
+    # pipeline (phase 5) for the two it alone runs
     main_runs = {k: [v["launches"] for v in served.values()]
-                 + [precision["modes"]["adaptive"]["launches"]]
+                 + [precision["modes"]["adaptive"]["launches"], fleet["inproc"]["launches"]]
                  for k in ("spike_matmul_mapped", "lif_epilogue_scan", "dense_conv_lif")}
     main_runs.update({k: [v["launches"] for v in unfused.values()]
                       for k in ("spike_matmul", "lif_step")})
@@ -2345,13 +2732,14 @@ def main() -> None:
         json.dump({"device": kind, "nvidia_smi": smi_line, "sass": sass, "kernels": checked,
                    "launch_floor_ms": floor_ms,
                    "serve": served, "unfused": unfused, "train": trained, "lm": lm,
-                   "precision": precision, "family": family}, f,
+                   "precision": precision, "family": family, "fleet": fleet}, f,
                   indent=1,
                   default=str)
     if any(math.isnan(k["ms"]) for k in kernels):
         fail("a kernel time is NaN")
     if any(k["launches"] == 0 for k in kernels):
         fail(f"a kernel was not launched on its main path: {kernels}")
+    print(f"phases 1-10 in {time.perf_counter() - t_start:.1f} s")
     print(smi_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -9,7 +9,15 @@ CUDA tensor to the hand kernel (or the wrapper raises).
 Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``;
 asking for the card when there is none raises.
 """
-import torch
+import os
+
+# cuBLAS reads its workspace setting once, when the first handle is made; a
+# fixed one is what keeps its GEMMs run-to-run deterministic, which the
+# training step asks for (`train.train_step.deterministic`). Set here, before
+# anything of this package can touch the card; a value the caller set wins.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import torch  # noqa: E402
 
 # Full fp32 products everywhere. The serving pipeline thresholds membrane
 # potentials at theta, and spike counts must match the reference as

@@ -22,14 +22,26 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --workload snn \\
         --scheduler sparsity --mixed-trace --precision adaptive --metrics prom
 
+    # fault-tolerant fleet: 3 replicas behind the supervised router, with
+    # an injected wedge on replica 0 (one slot each, so that replica 0
+    # still holds a request when the wedge starts):
+    PYTHONPATH=src python -m repro_torch.launch.serve --workload snn --slots 1 \\
+        --replicas 3 --fault-plan '0=wedge@1'
+
+    # multi-process fleet: 2 worker subprocesses (one EngineCore + runner
+    # each) supervised over the versioned wire protocol:
+    PYTHONPATH=src python -m repro_torch.launch.serve --workload snn --workers 2
+
 Runs on the card unless ``--device cpu`` is given; asking for the card
 without one raises. The LM is cut to ``--d-model`` / ``--n-layers`` /
 ``--vocab`` as the JAX package's CLI cuts it (0 keeps the architecture's
 own; archs with more than 8 experts keep 8 at top-k <= 2, frontends are
 dropped). ``--speculate`` on an arch with recurrent or ring-buffer state
 (recurrentgemma-2b, xlstm-125m) is refused with the reference's
-AssertionError. The fleet and data-shard flags of that CLI (`NOT_PORTED`)
-are not ported yet and exit with a message saying so.
+AssertionError. ``--workers N`` serves through N worker subprocesses on the
+same device, each building its runner from the same seeded spec. The
+data-shard flag of that CLI (`NOT_PORTED`) is not ported yet and exits
+with a message saying so.
 """
 from __future__ import annotations
 
@@ -52,9 +64,6 @@ from ..serve.runners.snn import SNNRunner
 
 #: flags of the JAX CLI that this port does not serve yet: (flag, test)
 NOT_PORTED = (
-    ("--replicas", lambda a: a.replicas != 1),
-    ("--workers", lambda a: a.workers != 0),
-    ("--fault-plan", lambda a: bool(a.fault_plan)),
     ("--data-shard", lambda a: a.data_shard > 1),
 )
 
@@ -75,17 +84,29 @@ def _sampling(a) -> bool:
 
 
 #: the JAX CLI's rules whose flags are all ported, with its names and
-#: messages; its rules on --replicas, --workers, --fault-plan and
-#: --data-shard join when those flags do
+#: messages; its rule on --data-shard joins when that flag does
 FLAG_RULES = (
+    FlagRule("replicas-range", lambda a: a.replicas < 1,
+             "--replicas must be >= 1"),
+    FlagRule("workers-range", lambda a: a.workers < 0,
+             "--workers must be >= 0 (0 = in-process serving)"),
     FlagRule("slo-needs-continuous",
              lambda a: a.slo_ms > 0 and a.admission == "batch",
              "--slo-ms requires --admission continuous "
              "(deadlines are step-level; the batch path ignores them)"),
+    FlagRule("slo-vs-fleet",
+             lambda a: a.slo_ms > 0 and (a.replicas > 1 or a.fault_plan),
+             "--slo-ms is a wall-clock SLO; the replica router runs on "
+             "a deterministic tick clock (drop --replicas/--fault-plan, "
+             "or use deadline-free requests with the fleet)"),
     FlagRule("precision-vs-int4", lambda a: a.precision and a.int4,
              "--int4 pins numerics at runner construction; with "
              "--precision the engine holds both variants (use "
              "--precision int4 for a pinned int4 fleet)"),
+    FlagRule("precision-vs-fleet",
+             lambda a: a.precision and (a.replicas > 1 or a.fault_plan),
+             "--precision builds a single controller-bound engine; "
+             "drop --replicas/--fault-plan"),
     FlagRule("lm-only-knobs",
              lambda a: (a.speculate or _sampling(a)) and a.workload != "lm",
              "--speculate/--temperature/--top-k/--top-p are LM-only"),
@@ -99,6 +120,24 @@ FLAG_RULES = (
              "--speculate drafts against one resident KV cache; the "
              "--precision variant registry swaps runners per request "
              "(drop one of the two)"),
+    FlagRule("workers-vs-replicas",
+             lambda a: a.workers > 0 and a.replicas > 1,
+             "--workers and --replicas are both fleet sizes (subprocess "
+             "vs in-process replicas); pick one"),
+    FlagRule("workers-vs-fault-plan",
+             lambda a: a.workers > 0 and bool(a.fault_plan),
+             "--fault-plan injects faults into in-process replicas; "
+             "subprocess workers are chaos-tested by killing the process, "
+             "not by injection"),
+    FlagRule("workers-vs-precision",
+             lambda a: a.workers > 0 and bool(a.precision),
+             "--precision builds a single controller-bound engine; it "
+             "does not serve through subprocess workers"),
+    FlagRule("workers-vs-slo",
+             lambda a: a.workers > 0 and a.slo_ms > 0,
+             "--slo-ms deadlines are stamped on each worker's own wall "
+             "clock at submit; cross-process SLO accounting is not "
+             "supported (drop one of the two)"),
 )
 
 
@@ -186,10 +225,23 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the model runs (default: the card)")
-    # flags of the JAX CLI, accepted so that they can be refused clearly
-    ap.add_argument("--replicas", type=int, default=1, help="not ported yet")
-    ap.add_argument("--workers", type=int, default=0, help="not ported yet")
-    ap.add_argument("--fault-plan", default="", help="not ported yet")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="serve through a supervised router over N engine "
+                         "replicas (heartbeat + numerics probe; wedged or "
+                         "poisoned replicas drain, in-flight requests "
+                         "re-route by deterministic replay)")
+    ap.add_argument("--fault-plan", default="",
+                    help="fault-injection schedule per replica, e.g. "
+                         "'0=wedge@4,1=nan@6:slot=0' (kinds: wedge, slow, "
+                         "raise, nan, flood). Implies the router path even "
+                         "with --replicas 1")
+    ap.add_argument("--workers", type=int, default=0, metavar="N",
+                    help="serve through N worker *subprocesses* (one "
+                         "EngineCore + runner each, supervised over the "
+                         "versioned wire protocol; a killed worker's "
+                         "in-flight requests replay elsewhere "
+                         "bit-identically). 0 serves in-process")
+    # a flag of the JAX CLI, accepted so that it can be refused clearly
     ap.add_argument("--data-shard", type=int, default=0, help="not ported yet")
     return ap.parse_args(argv)
 
@@ -232,14 +284,48 @@ def precision_engine(runner_factory, pricer, args):
     return core, controller
 
 
+def build_engine(runner, args):
+    """One `EngineCore`, or a supervised `Router` fleet when --replicas > 1.
+
+    Any --fault-plan also routes through the fleet path so a single replica
+    can be chaos-tested; the router runs on a shared deterministic tick
+    clock, which is why --slo-ms (wall clock) is rejected alongside it.
+    """
+    if args.replicas > 1 or args.fault_plan:
+        from ..serve.faults import parse_fleet_plan
+        from ..serve.router import make_router
+        plans = parse_fleet_plan(args.fault_plan) if args.fault_plan else None
+        return make_router(runner, max(1, args.replicas),
+                           engine_config(args), plans=plans,
+                           obs=bool(args.metrics))
+    return EngineCore(runner, engine_config(args), obs=make_obs(args))
+
+
+def print_fleet_report(core) -> None:
+    print(f"engine: {core.stats()}")
+    for entry in getattr(core, "drain_log", []):
+        step, idx, condition, rerouted = entry[:4]
+        detail = entry[4] if len(entry) > 4 else {}
+        extra = (f"; marker={detail.get('marker')} "
+                 f"cost_finite={detail.get('cost_finite')}")
+        dump = detail.get("dump")
+        if dump:
+            extra += f" recorder_frames={len(dump.get('frames', []))}"
+        print(f"drain @step {step}: replica {idx} condemned ({condition}), "
+              f"re-routed requests {rerouted}{extra}")
+
+
 def print_observability(core, fmt: str) -> None:
     """--metrics export: the run's metrics snapshot (JSON or Prometheus
-    text) plus a one-line trace / flight-recorder summary of the engine's
-    bundle."""
+    text) plus a one-line trace / flight-recorder summary. Routers merge
+    replica telemetry; a lone engine exports its own bundle."""
     from ..obs import to_prometheus
-    if core.obs is None:
+    if hasattr(core, "telemetry"):              # router fleet: merged view
+        tel = core.telemetry()
+    elif getattr(core, "obs", None) is not None:
+        tel = core.obs.snapshot()
+    else:
         return
-    tel = core.obs.snapshot()
     snap = tel.get("metrics", {})
     if fmt == "prom":
         print(to_prometheus(snap), end="")
@@ -272,17 +358,30 @@ def warm_slo(runner, prompts, args) -> None:
 def serve_lm(args) -> None:
     device = resolve_device(args.device)
     cfg = reduce_cfg(get_arch(args.arch), args).with_(frontend="", n_frontend_tokens=0)
-    params = tf.init_params(torch.Generator(device=device).manual_seed(args.seed), cfg, device)
     controller, runner = None, None
-    if args.precision:
-        from ..serve.precision import make_lm_variants
-        core, controller = precision_engine(
-            lambda: make_lm_variants(cfg, params, max_seq=args.seq, device=device),
-            None, args)
+    if args.workers > 0:
+        from ..serve.router import make_worker_fleet
+        from ..serve.worker import lm_spec
+        # every worker rebuilds params from the same wire-encodable spec
+        # (seed and device included), so re-routes after a worker death
+        # replay bit-identically and the parent never materialises the model
+        spec = lm_spec(cfg, seed=args.seed, max_seq=args.seq,
+                       quant_bits=4 if args.int4 else 0,
+                       speculate_k=args.speculate, device=device.type)
+        core = make_worker_fleet(spec, args.workers, engine_config(args),
+                                 obs=bool(args.metrics))
     else:
-        runner = LMRunner(cfg, params, max_seq=args.seq, quant_bits=4 if args.int4 else 0,
-                          speculate_k=args.speculate, device=device)
-        core = EngineCore(runner, engine_config(args), obs=make_obs(args))
+        params = tf.init_params(torch.Generator(device=device).manual_seed(args.seed), cfg,
+                                device)
+        if args.precision:
+            from ..serve.precision import make_lm_variants
+            core, controller = precision_engine(
+                lambda: make_lm_variants(cfg, params, max_seq=args.seq, device=device),
+                None, args)
+        else:
+            runner = LMRunner(cfg, params, max_seq=args.seq, quant_bits=4 if args.int4 else 0,
+                              speculate_k=args.speculate, device=device)
+            core = build_engine(runner, args)
 
     sampling_opts = {}
     if _sampling(args):
@@ -315,11 +414,13 @@ def serve_lm(args) -> None:
               f"accepted={stats['accepted_tokens']} "
               f"accept_rate={stats['accept_rate']:.3f} "
               f"goodput={stats['goodput_decode_tok_per_step']:.2f} tok/step")
-    print(f"engine: {stats}")
+    print_fleet_report(core)
     if controller is not None:
         print(f"precision controller: {controller.summary()}")
     if args.metrics:
         print_observability(core, args.metrics)
+    if hasattr(core, "close"):                  # worker fleets need a reap
+        core.close()
 
 
 def serve_snn(args) -> None:
@@ -327,16 +428,22 @@ def serve_snn(args) -> None:
     cfg = vgg9_snn.TINY_INT4 if args.int4 else vgg9_snn.TINY
     if args.img_hw:
         cfg = dataclasses.replace(cfg, img_hw=args.img_hw)
-    params = init_vgg9(torch.Generator().manual_seed(args.seed), cfg, device)
     controller = None
-    if args.precision:
-        from ..serve.precision import make_snn_pricer, make_snn_variants
-        core, controller = precision_engine(
-            lambda: make_snn_variants(cfg, params, device=device),
-            make_snn_pricer(cfg), args)
+    if args.workers > 0:
+        from ..serve.router import make_worker_fleet
+        from ..serve.worker import snn_spec
+        core = make_worker_fleet(snn_spec(cfg, seed=args.seed, device=device.type),
+                                 args.workers, engine_config(args),
+                                 obs=bool(args.metrics))
     else:
-        core = EngineCore(SNNRunner(cfg, params, device=device), engine_config(args),
-                          obs=make_obs(args))
+        params = init_vgg9(torch.Generator().manual_seed(args.seed), cfg, device)
+        if args.precision:
+            from ..serve.precision import make_snn_pricer, make_snn_variants
+            core, controller = precision_engine(
+                lambda: make_snn_variants(cfg, params, device=device),
+                make_snn_pricer(cfg), args)
+        else:
+            core = build_engine(SNNRunner(cfg, params, device=device), args)
 
     gen = torch.Generator().manual_seed(args.seed + 1)
     shape = (cfg.img_hw, cfg.img_hw, cfg.in_ch)
@@ -357,6 +464,9 @@ def serve_snn(args) -> None:
     results = core.run_until_complete()
     for rid in ids:
         res = results[rid]
+        if res.outputs is None:                 # failed or shed by the fleet
+            print(f"req{rid}: status={res.status}")
+            continue
         pred = int(res.outputs.argmax())
         skip = {k: round(v, 3) for k, v in res.stats["skip_rate"].items()}
         print(f"req{rid}: class={pred} spikes={res.stats['spike_total']:.0f} "
@@ -365,12 +475,15 @@ def serve_snn(args) -> None:
               f"served={res.stats['served_energy_j']:.3e} J "
               f"(analytical {res.stats['served_energy_analytical_j']:.3e} J) "
               f"status={res.status}")
-    print(f"engine: {core.stats()}")
+    print_fleet_report(core)
     if controller is not None:
         print(f"precision controller: {controller.summary()}")
     if args.metrics:
         print_observability(core, args.metrics)
-    print(f"admissions: {core.admission_log}")
+    if hasattr(core, "admission_log"):          # single engine, not a fleet
+        print(f"admissions: {core.admission_log}")
+    if hasattr(core, "close"):                  # worker fleets need a reap
+        core.close()
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -378,7 +491,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     refused = [flag for flag, used in NOT_PORTED if used(args)]
     if refused:
         sys.exit(f"not ported yet: {', '.join(refused)} (the PyTorch port "
-                 "serves the LM and SNN workloads on one engine)")
+                 "serves on one device, not over a data mesh)")
     for rule in check_flags(args):
         sys.exit(rule.error)
     if args.workload == "snn":

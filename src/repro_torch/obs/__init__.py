@@ -29,8 +29,8 @@ dumps) that worker heartbeats carry; the router folds replicas together
 with `merge_traces` + `metrics.aggregate`.
 
 Pure Python: a copy of the JAX package's obs/, kept so the port stands
-alone. The router and worker fleet that fold replica telemetry are not
-ported yet; a lone `EngineCore` uses every hook here.
+alone; the port's router and worker fleet (`repro_torch.serve.router`)
+fold replica telemetry as the reference's do.
 """
 from __future__ import annotations
 

@@ -6,15 +6,43 @@ spike and the QAT straight-through estimator. What the JAX package adds for
 distribution (gradient shardings, gradient dtype casts before the
 all-reduce, error-feedback int8 compression) arrives with distribution:
 asking for it raises `NotImplementedError`.
+
+Gradients are taken under `deterministic`: the same state and batch give
+bit-identical parameters and optimizer state run to run on the card too
+(cuDNN's default weight-gradient algorithms sum in a run-dependent order),
+so a crash -> resume replays the clean run bit for bit.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+import contextlib
+from typing import Any, Callable, Dict, Iterator, Tuple
 
 import torch
 
 from .optim import Optimizer, apply_updates, clip_by_global_norm
 from .tree import tree_leaves_with_path, tree_map
+
+
+@contextlib.contextmanager
+def deterministic() -> Iterator[None]:
+    """Run the body with deterministic algorithms only: cuDNN's
+    deterministic convolutions without autotuning, and
+    ``torch.use_deterministic_algorithms`` (an op with no deterministic
+    implementation raises instead of running). cuBLAS also needs a fixed
+    workspace, which importing `repro_torch` sets
+    (``CUBLAS_WORKSPACE_CONFIG``). The previous settings are restored on
+    exit, so serving keeps its own."""
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[2:]
 
 
 def init_train_state(params: Any, opt: Optimizer, *, compress: bool = False) -> Dict[str, Any]:
@@ -30,10 +58,11 @@ def init_train_state(params: Any, opt: Optimizer, *, compress: bool = False) -> 
 def value_and_grad(loss_fn: Callable[[Any, Dict], torch.Tensor]):
     """``loss_fn(params, batch) -> scalar`` as ``(params, batch) -> (loss, grads)``,
     the loss detached and ``grads`` a tree like ``params`` (zeros where the
-    loss does not depend on a leaf). ``params`` themselves are not modified."""
+    loss does not depend on a leaf). ``params`` themselves are not modified.
+    Runs under `deterministic`."""
     def fn(params, batch):
         leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        with torch.enable_grad():
+        with torch.enable_grad(), deterministic():
             loss = loss_fn(leaves, batch)
             paths = tree_leaves_with_path(leaves)
             grads = torch.autograd.grad(loss, [leaf for _, leaf in paths], allow_unused=True)
@@ -59,7 +88,8 @@ def make_train_step(
     leading dim is split into that many microbatches, whose gradients and
     losses are averaged in float32 (one backward each, so memory holds one
     microbatch's graph). The returned step is ``(state, batch) -> (state,
-    metrics)`` and leaves its input state unchanged."""
+    metrics)`` and leaves its input state unchanged; its gradients come from
+    `value_and_grad`, under `deterministic`."""
     if grad_shardings is not None or grad_dtype or compress_axis or compress_per_channel:
         raise NotImplementedError(
             "grad_shardings / grad_dtype / compress_axis arrive with distribution")

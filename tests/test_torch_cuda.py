@@ -15,7 +15,8 @@ core's u within 1e-5 and its spikes equal wherever u is clear of theta, and
 bit-identical to its ordered plain version (k ascending); the
 unfused pipeline bit-identical to the fused one; a training step's loss
 within 1e-4 and each gradient's relative L2 difference within 1e-3 of the
-CPU's (cuDNN and the CPU sum in different orders). The int4 matmul within
+CPU's (cuDNN and the CPU sum in different orders), two card steps from one
+state bit-identical and a crash -> resume equal to the clean run. The int4 matmul within
 1e-4 * max(1, max|ref|) (integer weights, fp32 sums in another order), a
 row equal to the M = 1 call's, two calls and every geometry and mode at the
 chosen K splits bit-identical;
@@ -28,7 +29,9 @@ each request's logits bit-identical to the single-precision engine's at
 the precision it was served, pinned requests at fp32, the served
 precisions equal to the CPU's, one fused pipeline's launches per occupied
 precision per engine step, and the same results with the observability
-plane attached.
+plane attached. The serving fleet at TINY: in-process replicas with a
+wedge and a NaN-poison, and subprocess workers with one killed, every ok
+result bit-identical to a solo engine's.
 """
 import numpy as np
 import pytest
@@ -398,6 +401,69 @@ def test_training_grads_match_cpu(cuda, name):
             assert diff <= 1e-3 * max(g.norm().item(), 1e-12), (layer, k)
 
 
+def _tree_equal(a, b):
+    """Two trees of tensors (dicts, tuples, lists) bit for bit: same keys,
+    dtypes, shapes and bits."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_tree_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(map(_tree_equal, a, b))
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["CIFAR10", "CIFAR10_INT4"])
+def test_training_step_is_run_to_run_deterministic(cuda, name):
+    """Two train steps from one state on one batch of 8, at full CIFAR10
+    width: bit-identical loss, parameters and optimizer state."""
+    from repro_torch.data.synthetic import image_batch
+    from repro_torch.train.optim import adamw
+    from repro_torch.train.schedule import warmup_cosine
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    cfg = getattr(vgg9_snn, name)
+    opt = adamw(weight_decay=0.0)
+    step = make_train_step(lambda p, b: vgg9.vgg9_loss(p, b, cfg), opt,
+                           warmup_cosine(3e-3, 20, 5))
+    state = init_train_state(vgg9.init_vgg9(torch.Generator().manual_seed(0), cfg, cuda), opt)
+    batch = image_batch(0, 0, 8, num_classes=cfg.num_classes, hw=cfg.img_hw, device=cuda)
+    a, ma = step(state, batch)
+    b, mb = step(state, batch)
+    assert torch.equal(ma["loss"], mb["loss"]) and torch.equal(ma["grad_norm"], mb["grad_norm"])
+    assert _tree_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_training_crash_resume_bit_identical_on_card(cuda, tmp_path):
+    """TINY on the card: a run that crashes after its step-4 checkpoint,
+    restores and finishes equals the clean run bit for bit."""
+    from repro_torch.data.synthetic import image_batch
+    from repro_torch.train.loop import TrainLoop
+    from repro_torch.train.optim import adamw
+    from repro_torch.train.schedule import warmup_cosine
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    cfg = vgg9_snn.TINY
+    opt = adamw(weight_decay=0.0)
+
+    def run(ckpt_dir, fail_at_step=None):
+        step = make_train_step(lambda p, b: vgg9.vgg9_loss(p, b, cfg), opt,
+                               warmup_cosine(3e-3, 2, 8))
+        loop = TrainLoop(step, lambda i: image_batch(0, i, 16, num_classes=cfg.num_classes,
+                                                     hw=cfg.img_hw, device=cuda),
+                         ckpt_dir=str(ckpt_dir), ckpt_every=2, log_every=100,
+                         log_fn=lambda *a: None)
+        state = init_train_state(vgg9.init_vgg9(torch.Generator().manual_seed(0), cfg, cuda),
+                                 opt)
+        if fail_at_step is None:
+            return loop.run(state, 8)
+        with pytest.raises(RuntimeError, match="simulated"):
+            loop.run(state, 8, fail_at_step=fail_at_step)
+        restored, start = loop.maybe_restore(state)
+        assert start == 4
+        return loop.run(restored, 8, start_step=start)
+
+    assert _tree_equal(run(tmp_path / "clean"), run(tmp_path / "crash", fail_at_step=5))
+
+
 # qwen1.5-4b's projections at decode (4 slots) and prefill (512) widths, the
 # LM head and serve_lm_w4's shape, then ragged shapes
 QWEN_INT4 = [(4, 2560, 2560), (512, 2560, 2560), (4, 2560, 6912), (512, 2560, 6912),
@@ -688,3 +754,83 @@ def test_adaptive_serving_with_obs_attached_is_bit_identical(cuda):
     snap = bundle.metrics.snapshot()
     assert snap["precision_decisions"]["value"] == len(trace)
     assert snap["precision_served_energy_eq3_j"]["value"] > 0
+
+
+def _fleet_images(n=9):
+    rng = np.random.default_rng(5)
+    return [rng.random((16, 16, 3)).astype(np.float32) * np.float32(0.02 if i % 2 == 0 else 1)
+            for i in range(n)]
+
+
+_FLEET_STATS = ("out_spikes", "in_spikes", "spike_total", "skip_rate", "ts_occupancy")
+
+
+@pytest.mark.cuda
+def test_fleet_chaos_on_card_bit_identical_to_solo(cuda):
+    """TINY on the card: 3 in-process replicas, replica 0 wedged from its
+    second step and replica 1 poisoning slot 0 at its third, the trace in
+    three waves. Both drained, one request failed, every ok result bit for
+    bit the solo engine's, and kernels 1-3 launched once per forward."""
+    from repro_torch.serve.faults import parse_fleet_plan
+    from repro_torch.serve.router import make_router
+    from repro_torch.serve.runners.snn import SNNRunner
+    cfg = vgg9_snn.TINY
+    runner = SNNRunner(cfg, vgg9.init_vgg9(torch.Generator().manual_seed(0), cfg, cuda),
+                       device=cuda)
+    imgs = _fleet_images()
+    solo = EngineCore(runner, EngineConfig(slots=2))
+    ids = [solo.submit(img) for img in imgs]
+    want = solo.run_until_complete()
+    router = make_router(runner, 3, EngineConfig(slots=2),
+                         plans=parse_fleet_plan("0=wedge@1,1=nan@2:slot=0"))
+    reset_cuda_launches()
+    rids = []
+    for w in range(3):
+        rids += [router.submit(img) for img in imgs[3 * w:3 * w + 3]]
+        if w < 2:
+            router.step()
+    results = router.run_until_complete()
+    assert sorted(e[2] for e in router.drain_log) == ["poisoned", "wedged"]
+    assert [results[r].status for r in rids].count("failed") == 1
+    for rid, i in zip(rids, ids):
+        if results[rid].status == "ok":
+            assert np.array_equal(results[rid].outputs, want[i].outputs)
+            for key in _FLEET_STATS:
+                assert results[rid].stats[key] == want[i].stats[key], key
+    forwards = sum(1 for rep in router.replicas for k in range(rep.core._session.step_idx)
+                   if rep.core._session.plan.active("wedge", k) is None)
+    assert CUDA_LAUNCHES["dense_conv_lif"] == forwards > 0
+    assert CUDA_LAUNCHES["spike_matmul_mapped"] == 3 * forwards
+
+
+@pytest.mark.cuda
+def test_worker_fleet_on_card_replays_bit_identical(cuda):
+    """2 subprocess workers on the card from one TINY `snn_spec`; worker 0
+    killed with a request in flight: every result equals the in-process
+    engine's over ``build_runner(spec)`` bit for bit."""
+    from repro_torch.serve.router import make_worker_fleet
+    from repro_torch.serve.worker import build_runner, snn_spec
+    spec = snn_spec(vgg9_snn.TINY, seed=0)
+    assert spec.device == "cuda"
+    config = EngineConfig(slots=2, max_idle_steps=50)
+    imgs = _fleet_images(6)
+    inproc = EngineCore(build_runner(spec), config)
+    ids = [inproc.submit(img) for img in imgs]
+    want = inproc.run_until_complete()
+    router = make_worker_fleet(spec, 2, config)
+    try:
+        rids = [router.submit(img) for img in imgs]
+        router.step()
+        victim = router.replicas[0].transport
+        assert victim.in_flight() > 0
+        victim.kill()
+        results = router.run_until_complete()
+    finally:
+        router.close()
+    assert len(router.drain_log) == 1 and router.stats()["rerouted"] >= 1
+    for rid, i in zip(rids, ids):
+        assert results[rid].status == "ok"
+        assert np.array_equal(results[rid].outputs, want[i].outputs)
+        for key in _FLEET_STATS:
+            assert results[rid].stats[key] == want[i].stats[key], key
+

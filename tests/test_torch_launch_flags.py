@@ -4,8 +4,8 @@ Every rule of the JAX package's `launch.serve.FLAG_RULES` whose flags the
 port serves has a rule of the same name and message in the port's table,
 and nothing else is there; each fires exactly once on the reference test's
 minimal violation (`tests/test_launch_flags.py`), also through the CLI,
-which exits with its message. The rules on the flags the port does not
-serve yet (`NOT_PORTED`) join with those flags.
+which exits with its message. The rule on the flag the port does not
+serve yet (`NOT_PORTED`: ``--data-shard``) joins with that flag.
 """
 import argparse
 
@@ -34,9 +34,13 @@ def ns(**over):
 
 
 def test_port_rules_are_the_reference_rules_on_ported_flags():
-    assert UNPORTED == {"--replicas", "--workers", "--fault-plan", "--data-shard"}
+    assert UNPORTED == {"--data-shard"}
     assert PORTED == sorted(["slo-needs-continuous", "precision-vs-int4", "lm-only-knobs",
-                             "sampling-needs-continuous", "speculate-vs-precision"])
+                             "sampling-needs-continuous", "speculate-vs-precision",
+                             "replicas-range", "workers-range", "slo-vs-fleet",
+                             "precision-vs-fleet", "workers-vs-replicas",
+                             "workers-vs-fault-plan", "workers-vs-precision",
+                             "workers-vs-slo"])
     ours = {rule.name: rule.error for rule in cli.FLAG_RULES}
     assert len(ours) == len(cli.FLAG_RULES), "duplicate rule names"
     assert ours == {rule.name: rule.error for rule in REF_RULES if rule.name in PORTED}
@@ -53,6 +57,11 @@ def test_each_rule_fires_exactly_once_on_its_violation(name):
 
 
 @pytest.mark.parametrize("over", [
+    dict(workers=2),
+    dict(workers=2, workload="snn"),
+    dict(workers=2, int4=True, speculate=3, temperature=0.7, top_p=0.9),
+    dict(workers=2, scheduler="sparsity", mixed_trace=True, workload="snn"),
+    dict(replicas=3, fault_plan="0=wedge@4,1=nan@6:slot=0"),
     dict(precision="adaptive", scheduler="sparsity", workload="snn"),
     dict(slo_ms=3000.0, scheduler="slo"),
     dict(speculate=4, temperature=0.8, top_p=0.95),

@@ -117,7 +117,9 @@ def test_import_leaves_jax_and_reference_out():
             " 'repro_torch.serve.precision', 'repro_torch.launch.quant_sparsity_study',"
             " 'repro_torch.launch.quickstart', 'repro_torch.models.moe',"
             " 'repro_torch.models.rglru', 'repro_torch.models.xlstm',"
-            " 'repro_torch.models.frontends', 'repro_torch.configs.granite_moe_3b'}"
+            " 'repro_torch.models.frontends', 'repro_torch.configs.granite_moe_3b',"
+            " 'repro_torch.serve.faults', 'repro_torch.serve.router',"
+            " 'repro_torch.serve.wire', 'repro_torch.serve.worker'}"
             " <= set(names)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'repro' or m.startswith('repro.'))\n"
@@ -147,8 +149,7 @@ def test_cli_serves_on_cpu(capsys):
     assert "'requests_done': 3" in out
 
 
-@pytest.mark.parametrize("flags", [["--workers", "2"], ["--replicas", "2"],
-                                   ["--data-shard", "2"], ["--fault-plan", "0=wedge@4"]])
+@pytest.mark.parametrize("flags", [["--data-shard", "2"]])
 def test_cli_refuses_unported_flags(flags):
     with pytest.raises(SystemExit, match="not ported yet"):
         cli.main(flags + ["--device", "cpu"])
@@ -177,3 +178,40 @@ def test_cli_serves_ported_flags(capsys, flags, expect):
         assert {"precision=fp32", "precision=int4"} <= {
             w for line in reqs for w in line.split() if w.startswith("precision=")}
         assert "trace: " in out
+
+
+def _request_lines(capsys, argv):
+    cli.main(argv + ["--workload", "snn", "--device", "cpu"])
+    out = capsys.readouterr().out
+    return [line for line in out.splitlines() if line.startswith("req")], out
+
+
+@pytest.mark.parametrize("fleet", [["--replicas", "3", "--fault-plan", "0=wedge@1"],
+                                   ["--workers", "2"]], ids=["replicas", "workers"])
+def test_cli_fleet_lines_equal_the_solo_engine_s(capsys, fleet):
+    """Through 3 in-process replicas with replica 0 wedged from its second
+    step (the JAX CLI's drain line printed), or through 2 worker
+    subprocesses, each request's line equals the solo engine's on the same
+    seed. One slot per engine, so that every request rides a batch of its
+    own everywhere (its served energy is its batch's share) and replica 0
+    still holds a request when its wedge starts."""
+    solo, _ = _request_lines(capsys, ["--slots", "1"])
+    lines, out = _request_lines(capsys, ["--slots", "1"] + fleet)
+    assert len(solo) == 4 and lines == solo
+    assert all(line.endswith("status=ok") for line in lines)
+    assert "'router_steps'" in out and "admissions:" not in out
+    drains = [line for line in out.splitlines() if line.startswith("drain @step")]
+    if "--replicas" in fleet:
+        assert len(drains) == 1 and "replica 0 condemned (wedged), re-routed requests [3]" \
+            in drains[0]
+    else:
+        assert drains == [] and "'worker_pid'" in out
+
+
+def test_cli_fleet_reports_requests_no_replica_could_serve(capsys):
+    """One replica wedged from its first step: it is condemned with nothing
+    healthy left, so every request retires 'failed' without outputs, and the
+    CLI reports each one instead of reading logits that do not exist."""
+    lines, out = _request_lines(capsys, ["--fault-plan", "0=wedge@0", "--requests", "2"])
+    assert lines == ["req0: status=failed", "req1: status=failed"]
+    assert "drain @step" in out

@@ -370,6 +370,33 @@ def test_train_step_refuses_distribution_options():
         init_train_state({"w": torch.zeros(2)}, opt, compress=True)
 
 
+def _deterministic_flags():
+    return (torch.are_deterministic_algorithms_enabled(),
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+
+
+def test_train_step_runs_deterministic():
+    """The step and `value_and_grad` run their loss and backward with
+    deterministic algorithms and cuDNN's deterministic, untuned convolutions
+    (what makes two card steps from one state bit-identical; the card test
+    in `tests/test_torch_cuda.py` holds that), restore the caller's settings
+    afterwards, and the package fixes cuBLAS's workspace."""
+    seen = []
+
+    def loss_fn(params, batch):
+        seen.append(_deterministic_flags())
+        return torch.sum((params["w"] - batch["x"]) ** 2)
+
+    before = _deterministic_flags()
+    opt = optim.adamw(weight_decay=0.0)
+    step = make_train_step(loss_fn, opt, schedule.constant(0.1), accum_steps=2)
+    state, _ = step(init_train_state({"w": torch.zeros(4)}, opt), {"x": torch.ones(2, 4)})
+    value_and_grad(loss_fn)(state["params"], {"x": torch.ones(4)})
+    assert seen == [(True, True, False)] * 3
+    assert _deterministic_flags() == before
+    assert os.environ["CUBLAS_WORKSPACE_CONFIG"] in (":4096:8", ":16:8")
+
+
 # ---------------------------------------------------------------------------
 # Checkpoints and the loop
 # ---------------------------------------------------------------------------
