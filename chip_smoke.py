@@ -116,7 +116,34 @@ Run from the root of a checkout. Phases, one line or block each:
              the CLI side by side: `--replicas 3 --fault-plan 0=wedge@1`
              (its drain line) and `--workers 2`, one slot each, the same
              request lines, and `--workers 1 --replicas 2` refused with its
-             rule's message.
+             rule's message;
+11. train  — LM training: (a) granite-moe-3b-a800m at full width, 8 of its
+             32 layers (`MOE_LAYERS`), in the config's own bf16 with
+             remat="full" and AdamW, warmup-cosine to a peak lr of 1e-3 in 2
+             steps, `token_batch` batches of
+             8 x 512 through `DataPipeline` onto the card: 2 steps twice from
+             one state (losses, parameters and optimizer state must be
+             bit-identical), then 6 more (finite, the last loss below the
+             first); host ms per step, tokens/s, peak allocated and
+             nvidia-smi's used memory, one profiled step's device busy
+             share, and the step's bound (its flops over the bf16 peak,
+             experts at capacity and routed only, against the optimizer's
+             state bytes over HBM); before it, each indexing op of the step's
+             backward (the MoE's gathers, the embedding gather, the loss's
+             `take_along_dim`) at these shapes, twice under the step's
+             deterministic settings: it raises or repeats its bits; (b)
+             granite-moe and xlstm-125m at full width, one period, B = 2, S =
+             128, fp32 on one set of weights: the train loss within 1e-4
+             relative of the CPU's, the worst gradient's relative L2 within
+             1e-3, expert sets equal where the router's gap exceeds 1e-4;
+             the bf16 loss beside the fp32 one on the same weights; (c)
+             xlstm-125m at full size (bf16, 12 layers) through `TrainLoop`
+             with a checkpoint every 2 steps: a clean 6-step run bit-identical
+             to one that fails at step 3 and resumes from step 2, the last
+             checkpoint's bf16 leaves restoring bit for bit; then
+             `python -m repro_torch.launch.train` (its defaults) as a
+             subprocess on the card, which must exit 0 and print its final
+             loss.
 
 Phase 3 holds `spike_matmul_mapped` at spike densities 0.1, 0.33 and 1.0:
 within 1e-4 of the plain product, bit for bit the plain k-ascending sum
@@ -1211,9 +1238,12 @@ def check_training(torch, name, cfg, errors):
 
 
 def tree_equal(torch, a, b) -> bool:
-    """Two trees of tensors bit for bit (keys, dtypes, shapes and bits)."""
+    """Two trees of tensors (dicts, tuples) bit for bit (keys, dtypes,
+    shapes and bits)."""
     if isinstance(a, dict):
         return a.keys() == b.keys() and all(tree_equal(torch, a[k], b[k]) for k in a)
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(tree_equal(torch, x, y) for x, y in zip(a, b))
     return a.dtype == b.dtype and torch.equal(a, b)
 
 
@@ -2143,6 +2173,364 @@ def check_family(torch, errors, smi):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: LM training on the card
+# ---------------------------------------------------------------------------
+
+# 11a's batch: 8 sequences of 512 tokens; 11b's card-vs-CPU batch
+TRAIN_BATCH, TRAIN_SEQ = 8, 512
+CPU_TRAIN_BATCH, CPU_TRAIN_SEQ = 2, 128
+# 11a: 2 steps twice from one state, then this many more, at this peak lr
+TRAIN_MORE = 6
+TRAIN_LR = 1e-3
+
+
+def train_step_bound(cfg, n_params, batch, seq):
+    """Phase 11a: the least time of one train step of an all-MoE arch
+    (``attn_moe`` periods) on batch x seq tokens. Flops: the forward's
+    projections, causal attention (the half of QK^T and PV a causal mask
+    needs), router and expert GEMMs, four times for the checkpointed
+    periods (forward, recomputed forward, backward's two products) and
+    three times for the LM head; the experts at the reference's padded
+    capacity, and routed only beside it. Bytes: the optimizer's state,
+    each parameter and moment read and written once and each gradient
+    read once. Returns (ms, by, flops, routed flops, bytes)."""
+    from repro_torch.core.tiling import round_up
+    t = batch * seq
+    d, hd, h, kv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    attn = 2 * t * d * (h + 2 * kv) * hd + 2 * t * h * hd * d \
+        + 2 * batch * h * seq * (seq + 1) * hd
+    e = max(cfg.n_experts_padded, cfg.n_experts)
+    rows = t * cfg.top_k
+    capacity = min(round_up(int(rows / cfg.n_experts * cfg.capacity_factor) + 1, 8), rows)
+    mats = 3 if cfg.mlp_act in ("swiglu", "geglu") else 2
+    router = 2 * t * d * e
+    per_row = 2 * mats * d * cfg.moe_d_ff
+    head = 2 * t * d * cfg.vocab
+    flops = 4 * cfg.n_layers * (attn + router + e * capacity * per_row) + 3 * head
+    routed = 4 * cfg.n_layers * (attn + router + rows * per_row) + 3 * head
+    p_bytes = 2 if cfg.dtype == "bfloat16" else 4
+    state_bytes = n_params * (2 * p_bytes + p_bytes + 4 * 4)
+    ms, by = bound(state_bytes, flops, BF16_FLOPS)
+    return ms, by, flops, routed, state_bytes
+
+
+def probe_index_backwards(torch, cfg, batch, seq):
+    """Phase 11a: each indexing op of the LM step whose backward
+    accumulates into repeated indices (``index_put_(accumulate=True)`` or
+    ``scatter_add``), at the shapes 11a's step gives it, with the MoE's
+    index structure (each token in k sorted rows, capacity-padded expert
+    windows, dropped rows repeating capacity - 1): its gradient taken twice
+    under the step's deterministic settings. Returns {op: status}, the
+    status "raises: ..." or whether the two gradients' bits agree."""
+    from repro_torch.core.tiling import round_up
+    from repro_torch.train.train_step import deterministic
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(5)
+    t, d, k = batch * seq, cfg.d_model, cfg.top_k
+    e = max(cfg.n_experts_padded, cfg.n_experts)
+    rows = t * k
+    capacity = min(round_up(int(rows / cfg.n_experts * cfg.capacity_factor) + 1, 8), rows)
+    scores = torch.rand((t, cfg.n_experts), generator=g, device=dev)
+    flat = torch.sort(scores, dim=-1, descending=True, stable=True).indices[:, :k].reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    sorted_expert, src_token = flat[order], order // k
+    group = torch.bincount(flat, minlength=e)
+    offsets = torch.cumsum(group, 0) - group
+    rank = torch.arange(rows, device=dev) - offsets[sorted_expert]
+    slot = torch.arange(capacity, device=dev)
+    where = torch.empty_like(order)
+    where[order] = torch.arange(rows, device=dev)
+    per_token = torch.sort(where.reshape(t, k), dim=1).values
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=g, device=dev)
+    bf16 = getattr(torch, cfg.dtype)
+    ops = {
+        "xt[src_token]": ((t, d), bf16, lambda x: x[src_token]),
+        "xs_pad[offsets + slot]": ((rows + capacity, d), bf16,
+                                   lambda x: x[offsets[:, None] + slot[None, :]]),
+        "oe[sorted_expert, rank.clamp]": ((e, capacity, d), bf16,
+                                          lambda x: x[sorted_expert, rank.clamp(0, capacity - 1)]),
+        "contrib[per_token]": ((rows, d), bf16, lambda x: x[per_token]),
+        "w_tok[tokens]": ((cfg.vocab, d), bf16, lambda x: x[tokens]),
+        "take_along_dim(logits, labels)": ((batch, seq, cfg.vocab), torch.float32,
+                                           lambda x: torch.take_along_dim(x, tokens[..., None],
+                                                                          dim=-1)),
+    }
+    out = {}
+    for name, (shape, dtype, fn) in ops.items():
+        x = torch.randn(shape, generator=g, device=dev).to(dtype)
+
+        def grad():
+            leaf = x.detach().requires_grad_(True)
+            with deterministic():
+                y = fn(leaf)
+                cot = torch.randn(y.shape, generator=torch.Generator(device=dev).manual_seed(9),
+                                  device=dev).to(y.dtype)
+                return torch.autograd.grad(y, leaf, cot)[0]
+        try:
+            same = torch.equal(grad(), grad())
+            out[name] = "bit-identical" if same else "differs"
+        except RuntimeError as exc:
+            out[name] = f"raises: {str(exc).splitlines()[0][:160]}"
+        del x
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_lm_training(torch, errors, smi):
+    """Phase 11a (see the module docstring)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optim import make_optimizer
+    from repro_torch.train.schedule import warmup_cosine
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    from repro_torch.train.tree import tree_leaves
+    t0 = time.perf_counter()
+    cfg = get_arch("granite-moe-3b-a800m").with_(n_layers=MOE_LAYERS)
+    probes = probe_index_backwards(torch, cfg, TRAIN_BATCH, TRAIN_SEQ)
+    for name, status in probes.items():
+        print(f"train {cfg.name}: backward of {name} under the step's deterministic "
+              f"settings: {status}")
+        if status != "bit-identical":
+            errors.append(f"11a: the backward of {name}: {status}")
+
+    torch.cuda.reset_peak_memory_stats()
+    opt = make_optimizer(cfg.optimizer)
+    steps = 2 + TRAIN_MORE
+    # peak lr 1e-3 after a 2-step warmup: at the launcher's 3e-3 (its
+    # default for d_model 64) the full-width bf16 model's loss rose over 8
+    # steps on an H100, and a 10-step warmup never reaches the peak in 8
+    step = make_train_step(lambda p, b: tf.train_loss(p, b, cfg), opt,
+                           warmup_cosine(TRAIN_LR, 2, steps))
+    params = tf.init_params(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+    n_params = sum(leaf.numel() for leaf in tree_leaves(params))
+    state0 = init_train_state(params, opt)
+    del params
+    pipe = DataPipeline(make_batch_fn(cfg, 0, TRAIN_BATCH, TRAIN_SEQ), device="cuda")
+
+    def run(state, start, n):
+        losses, times, it = [], [], pipe(start)
+        for _ in range(n):
+            i, batch = next(it)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(metrics["loss"].item())
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+        it.close()
+        return state, losses, times
+
+    a, loss_a, ms_a = run(state0, 0, 2)
+    b, loss_b, ms_b = run(state0, 0, 2)
+    same = loss_a == loss_b and tree_equal(torch, a, b)
+    del b, state0
+    if not same:
+        errors.append(f"11a: two 2-step runs from one state differ: losses {loss_a} vs {loss_b}")
+    state, loss_more, ms_more = run(a, 2, TRAIN_MORE)
+    del a
+    losses = loss_a + loss_more
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        errors.append(f"11a: losses {losses}")
+    peak = torch.cuda.max_memory_allocated()
+    smi_used = gpu_memory("gpu=memory.used,memory.total")
+
+    # one profiled step (the device only, as 7a profiles)
+    it = pipe(steps)
+    _, batch = next(it)
+    it.close()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as trace:
+        t1 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) * 1e3
+    kernels = sorted((e for e in trace.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and e.self_device_time_total > 0),
+                     key=lambda e: e.self_device_time_total, reverse=True)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = [(e.key, e.self_device_time_total / 1e3, e.count) for e in kernels[:8]]
+    del state, batch
+    torch.cuda.empty_cache()
+
+    bound_ms, bound_by, flops, routed, state_bytes = train_step_bound(
+        cfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
+    median = float(np.median(ms_more[1:]))
+    tokens_s = TRAIN_BATCH * TRAIN_SEQ / (median / 1e3)
+    out = {"layers": cfg.n_layers, "params": n_params, "losses": losses,
+           "ms_per_step": ms_a + ms_b + ms_more, "median_ms": median, "tokens_per_s": tokens_s,
+           "bit_identical": same, "peak_allocated_bytes": peak, "nvidia_smi_memory": smi_used,
+           "profiled_wall_ms": wall, "profiled_busy_ms": busy, "profiled_top": top,
+           "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "routed_flops": routed,
+           "state_bytes": state_bytes, "index_backwards": probes,
+           "seconds": time.perf_counter() - t0}
+    print(f"train {cfg.name} ({cfg.n_layers} of {get_arch(cfg.name).n_layers} layers, full "
+          f"width, {cfg.dtype}, remat {cfg.remat}, {cfg.optimizer} at peak lr {TRAIN_LR}; "
+          f"{n_params} parameters) [{smi}]: batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} through DataPipeline; 2-step runs from one state bit-identical "
+          f"(losses, parameters, optimizer state) {same}; losses "
+          f"{[round(v, 6) for v in losses]}")
+    print(f"train {cfg.name}: host ms/step (synchronized) {[round(v, 3) for v in out['ms_per_step']]}, "
+          f"median of steps 3-{steps - 1} {median:.3f} ms, {tokens_s:.0f} tokens/s; peak allocated "
+          f"{peak / 2**30:.2f} GiB; nvidia-smi used, total {smi_used}")
+    print(f"train {cfg.name}: profiled step {wall:.3f} ms, device busy {busy:.3f} ms "
+          f"({100 * busy / wall:.1f}%); bound {bound_ms:.3f} ms ({bound_by}: "
+          f"{flops / 1e12:.3f} TFLOP at capacity, {routed / 1e12:.3f} routed only = "
+          f"{routed / BF16_FLOPS * 1e3:.3f} ms, over {BF16_FLOPS / 1e12:.0f} TFLOP/s; optimizer "
+          f"state {state_bytes / 1e9:.3f} GB over {HBM_BYTES_PER_S / 1e12:.2f} TB/s = "
+          f"{state_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms): the median step at "
+          f"{100 * bound_ms / median:.1f}% of its bound")
+    print(f"train {cfg.name}: top device ms in the profiled step (launches): "
+          + ", ".join(f"{k[:40]} {ms:.3f} ({n})" for k, ms, n in top))
+    return out
+
+
+def check_train_against_cpu(torch, arch, errors):
+    """Phase 11b: ``arch`` at full width, one period, fp32 with its own
+    remat, one set of weights: the train loss and every gradient on the
+    card against the CPU, MoE routes compared as in 9c; and the loss of
+    the same weights rounded to bf16 beside it."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.train_step import value_and_grad
+    from repro_torch.train.tree import keystr, tree_leaves_with_path, tree_map
+    t0 = time.perf_counter()
+    base = get_arch(arch)
+    cfg = base.with_(dtype="float32", n_layers=len(base.pattern) + len(base.tail))
+    params = tf.init_params(torch.Generator(device="cuda").manual_seed(2), cfg, "cuda")
+    cpu = to_device(params, "cpu")
+    batch = token_batch(0, 0, CPU_TRAIN_BATCH, CPU_TRAIN_SEQ, cfg.vocab)
+    grad_fn = value_and_grad(lambda p, b: tf.train_loss(p, b, cfg))
+    with Routes() as routes:
+        loss, grads = grad_fn(params, to_device(batch, "cuda"))
+        n_card = len(routes.calls)
+        ref_loss, ref_grads = grad_fn(cpu, batch)
+    calls = routes.calls
+    rel = {keystr(p): (g.cpu() - r).norm().item() / max(r.norm().item(), 1e-30)
+           for (p, g), (_, r) in zip(tree_leaves_with_path(grads),
+                                     tree_leaves_with_path(ref_grads))}
+    worst = max(rel, key=rel.get)
+    d_loss = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+    row = {"layers": cfg.n_layers, "loss": loss.item(), "loss_cpu": ref_loss.item(),
+           "rel_dloss": d_loss, "worst_grad": [worst, rel[worst]]}
+    if d_loss > 1e-4 or rel[worst] > 1e-3 or not math.isfinite(loss.item()):
+        errors.append(f"11b {arch}: card vs CPU loss rel {d_loss} worst grad {worst} {rel[worst]}")
+    routed = ""
+    if cfg.n_experts:
+        differ, clear, tokens = route_differences(torch, calls[:n_card], calls[n_card:],
+                                                  cfg.top_k)
+        row.update(route_tokens=tokens, route_differ=differ, route_differ_clear=clear)
+        if clear:
+            errors.append(f"11b {arch}: {clear} tokens route to other experts where the "
+                          f"router's k-th/(k+1)-th gap exceeds {ROUTE_GAP}")
+        routed = (f"; expert sets equal at {tokens - differ}/{tokens} routed tokens (forward "
+                  f"and recomputed forward; {clear} differ above a {ROUTE_GAP} gap)")
+    # the same weights rounded to the dtypes the config's own bf16 gives
+    with torch.no_grad():
+        bcfg = cfg.with_(dtype="bfloat16")
+        dtypes = tf.init_params(torch.Generator(device="cuda").manual_seed(2), bcfg, "cuda")
+        bparams = tree_map(lambda like, x: x.to(like.dtype), dtypes, params)
+        del dtypes
+        bf16_loss = tf.train_loss(bparams, to_device(batch, "cuda"), bcfg).item()
+        del bparams
+    row["bf16_loss"] = bf16_loss
+    row["seconds"] = time.perf_counter() - t0
+    print(f"train {arch} card vs CPU ({cfg.n_layers} layers, full width, fp32, remat "
+          f"{cfg.remat}, batch {CPU_TRAIN_BATCH} x {CPU_TRAIN_SEQ}): loss {loss.item():.6f} vs "
+          f"{ref_loss.item():.6f} (rel {d_loss:.3e}, tol 1e-4), worst gradient rel L2 {worst} "
+          f"{rel[worst]:.3e} (tol 1e-3){routed}; bf16 loss on the same weights rounded to bf16 "
+          f"{bf16_loss:.6f} (|d| {abs(bf16_loss - loss.item()):.3e}); {row['seconds']:.1f} s")
+    del params, cpu, grads, ref_grads
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_train_resume(torch, errors):
+    """Phase 11c: xlstm-125m at full size (bf16, 12 layers, remat) through
+    `TrainLoop`, checkpointing every 2 steps: a clean 6-step run against
+    one that fails at step 3 and resumes from its step-2 checkpoint (losses
+    and final state bit for bit), and the last checkpoint restored against
+    the final state (bf16 leaves included); then the launcher's defaults as
+    a subprocess on the card."""
+    import shutil
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.loop import TrainLoop
+    from repro_torch.train.optim import make_optimizer
+    from repro_torch.train.schedule import warmup_cosine
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    t0 = time.perf_counter()
+    cfg = get_arch("xlstm-125m")
+    root = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    steps = 6
+    opt = make_optimizer(cfg.optimizer)
+    state0 = init_train_state(
+        tf.init_params(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda"), opt)
+
+    def loop(name):
+        step = make_train_step(lambda p, b: tf.train_loss(p, b, cfg), opt,
+                               warmup_cosine(3e-3, 10, steps))
+        return TrainLoop(step, make_batch_fn(cfg, 0, 8, 128, "cuda"),
+                         ckpt_dir=os.path.join(root, name), ckpt_every=2, log_every=1,
+                         log_fn=lambda *a: None)
+
+    clean = loop("clean")
+    final = clean.run(state0, steps)
+    crash = loop("crash")
+    try:
+        crash.run(state0, steps, fail_at_step=3)
+        errors.append("11c: the run meant to fail at step 3 did not")
+    except RuntimeError:
+        pass
+    restored, start = crash.maybe_restore(state0)
+    resumed = crash.run(restored, steps, start_step=start)
+    losses = [m["loss"] for _, m in clean.history]
+    same = (start == 2 and tree_equal(torch, final, resumed)
+            and [m["loss"] for _, m in crash.history] == losses[2:])
+    with open(os.path.join(root, "clean", f"step_{steps:08d}", "manifest.json")) as f:
+        dtypes = [leaf["dtype"] for leaf in json.load(f)["leaves"]]
+    back = ckpt.restore(os.path.join(root, "clean"), steps, state0)
+    round_trip = tree_equal(torch, back, final)
+    del state0, final, resumed, restored, back
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    if not same or not round_trip or not all(math.isfinite(v) for v in losses):
+        errors.append(f"11c: resumed run bit-identical {same} (resumed from {start}), "
+                      f"checkpoint round trip {round_trip}, losses {losses}")
+
+    t1 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.train"], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=600)
+    final_line = [ln for ln in cli.stdout.splitlines() if ln.startswith("final loss:")]
+    if cli.returncode != 0 or not final_line:
+        errors.append(f"11c: python -m repro_torch.launch.train exited {cli.returncode}: "
+                      f"{cli.stderr[-2000:]}")
+    out = {"losses": losses, "bit_identical": same, "resumed_from": start,
+           "bf16_leaves": dtypes.count("bfloat16"), "leaves": len(dtypes),
+           "round_trip": round_trip, "seconds_loop": t1 - t0,
+           "cli_rc": cli.returncode, "cli_final": final_line,
+           "cli_seconds": time.perf_counter() - t1}
+    print(f"train {cfg.name} (full size: {cfg.n_layers} layers, {cfg.dtype}, remat {cfg.remat}; "
+          f"batch 8 x 128) through TrainLoop, a checkpoint every 2 steps: losses "
+          f"{[round(v, 6) for v in losses]}; failed at step 3, resumed from step {start}: "
+          f"bit-identical to the clean run {same}; the step-{steps} checkpoint "
+          f"({dtypes.count('bfloat16')} of {len(dtypes)} leaves bfloat16) restores bit for bit "
+          f"{round_trip}; {t1 - t0:.1f} s")
+    print(f"train: python -m repro_torch.launch.train (defaults) rc {cli.returncode}, "
+          f"{final_line[-1] if final_line else 'no final loss'}; {out['cli_seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 10: the serving fleet
 # ---------------------------------------------------------------------------
 
@@ -2677,6 +3065,23 @@ def main() -> None:
     if errors:
         fail("; ".join(errors))
 
+    # 11. LM training
+    t11 = time.perf_counter()
+    torch.cuda.empty_cache()
+    lm_train = {"moe": check_lm_training(torch, errors, smi_line)}
+    lm_train["seconds_a"] = time.perf_counter() - t11
+    lm_train["cpu"] = {arch: check_train_against_cpu(torch, arch, errors)
+                       for arch in ("granite-moe-3b-a800m", "xlstm-125m")}
+    lm_train["seconds_b"] = time.perf_counter() - t11 - lm_train["seconds_a"]
+    lm_train["resume"] = check_train_resume(torch, errors)
+    lm_train["seconds"] = time.perf_counter() - t11
+    print(f"phase 11 train: {len(errors)} errors in {lm_train['seconds']:.1f} s (11a "
+          f"{lm_train['seconds_a']:.1f}, 11b {lm_train['seconds_b']:.1f}, 11c "
+          f"{lm_train['resume']['seconds_loop']:.1f} + cli "
+          f"{lm_train['resume']['cli_seconds']:.1f}) [{smi_line}]")
+    if errors:
+        fail("; ".join(errors))
+
     csrc = "src/repro_torch/kernels/{}/csrc/{}.cu"
     sources = {"spike_matmul_mapped": csrc.format("spike_conv", "spike_matmul_mapped"),
                "lif_epilogue_scan": csrc.format("lif_step", "lif_epilogue_scan"),
@@ -2732,14 +3137,15 @@ def main() -> None:
         json.dump({"device": kind, "nvidia_smi": smi_line, "sass": sass, "kernels": checked,
                    "launch_floor_ms": floor_ms,
                    "serve": served, "unfused": unfused, "train": trained, "lm": lm,
-                   "precision": precision, "family": family, "fleet": fleet}, f,
+                   "precision": precision, "family": family, "fleet": fleet,
+                   "lm_train": lm_train}, f,
                   indent=1,
                   default=str)
     if any(math.isnan(k["ms"]) for k in kernels):
         fail("a kernel time is NaN")
     if any(k["launches"] == 0 for k in kernels):
         fail(f"a kernel was not launched on its main path: {kernels}")
-    print(f"phases 1-10 in {time.perf_counter() - t_start:.1f} s")
+    print(f"phases 1-11 in {time.perf_counter() - t_start:.1f} s")
     print(smi_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

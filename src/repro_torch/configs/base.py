@@ -4,8 +4,9 @@ Every assigned architecture is an `ArchConfig`; shapes are the four assigned
 input-shape cells. Configs are plain frozen dataclasses, hashable and
 independent of any device. A copy of the JAX package's configs/base.py,
 kept so the port stands alone; the fields that steer TPU lowering
-(`unroll_chunks`, `sp_blocks`, `remat`, ...) are carried so the two packages
-share one config, and the port ignores them.
+(`unroll_chunks`, `sp_blocks`, ...) are carried so the two packages share
+one config, and the port ignores them. `remat` it honours: "full"
+checkpoints each period in training (`models.transformer.forward`).
 """
 from __future__ import annotations
 

@@ -1,14 +1,15 @@
-"""Synthetic image dataset (the repo trains offline on generated data).
+"""Synthetic datasets (the repo trains offline on generated data).
 
 Image task: class-conditional oriented Gabor-like textures at CIFAR geometry
 (32x32x3) — learnable structure so the quantization-sparsity study trains to
-non-trivial accuracy. The same recipe as the JAX package's `image_batch`,
-but drawn from a `torch.Generator`, so the pixels differ from the
-reference's for the same seed.
+non-trivial accuracy. Token task: noisy affine walks over the vocab, so the
+next token is predictable. The same recipes as the JAX package's
+`image_batch` and `token_batch`, but drawn from a `torch.Generator`, so the
+numbers differ from the reference's for the same seed.
 
 Everything is *stateless and step-keyed*: batch(step) is a pure function of
-(seed, step), which makes restarts reproduce the exact data order. The
-token task (`token_batch`) arrives with the LM slice.
+(seed, step), drawn on the host, which makes restarts reproduce the exact
+data order.
 """
 from __future__ import annotations
 
@@ -51,3 +52,25 @@ def image_batch(seed: int, step: int, batch: int, *, num_classes: int = 10,
     shift = torch.rand((batch, 1, 1, 1), generator=g) * 0.1
     return {"images": torch.clamp(imgs + shift, 0, 1).to(dtype=dtype, device=device),
             "labels": labels.to(device)}
+
+
+def token_batch(seed: int, step: int, batch: int, seq_len: int, vocab: int, device="cpu"):
+    """Markov-ish token streams -> {tokens [B, S], labels [B, S]}, labels the
+    next tokens (teacher forcing).
+
+    Each row walks ``(start + stride * t) % vocab`` with start in [0, vocab)
+    and stride in [1, 7); 5 % of positions are replaced by uniform tokens.
+    int64 (torch's index dtype, which the embedding gather and the loss's
+    ``take_along_dim`` take; the reference's are int32). Drawn on the host
+    and moved to ``device``.
+    """
+    g = _generator(seed, step)
+    start = torch.randint(0, vocab, (batch, 1), generator=g)
+    stride = torch.randint(1, 7, (batch, 1), generator=g)
+    pos = torch.arange(seq_len + 1)[None]
+    stream = (start + stride * pos) % vocab
+    flip = torch.rand(stream.shape, generator=g) < 0.05
+    rand = torch.randint(0, vocab, stream.shape, generator=g)
+    stream = torch.where(flip, rand, stream)
+    return {"tokens": stream[:, :-1].contiguous().to(device),
+            "labels": stream[:, 1:].contiguous().to(device)}

@@ -61,6 +61,7 @@ from ..serve.api import EngineConfig, Request, StepBudget
 from ..serve.core import EngineCore
 from ..serve.runners.lm import LMRunner
 from ..serve.runners.snn import SNNRunner
+from .train import reduce_cfg
 
 #: flags of the JAX CLI that this port does not serve yet: (flag, test)
 NOT_PORTED = (
@@ -144,30 +145,6 @@ FLAG_RULES = (
 def check_flags(args) -> List[FlagRule]:
     """Every violated `FlagRule` for this namespace (empty = accepted)."""
     return [rule for rule in FLAG_RULES if rule.when(args)]
-
-
-def reduce_cfg(cfg, args):
-    """The JAX package's `launch.train.reduce_cfg`: float32 weights, and
-    width, depth and vocab cut to the flags (0 keeps the config's own)."""
-    kw = {"dtype": "float32", "remat": "none"}
-    if args.d_model:
-        hd = max(args.d_model // cfg.n_heads, 8)
-        kw.update(d_model=args.d_model, head_dim=hd,
-                  d_ff=0 if cfg.d_ff == 0 else 2 * args.d_model,
-                  moe_d_ff=min(cfg.moe_d_ff, args.d_model) if cfg.moe_d_ff else 0,
-                  d_rnn=args.d_model if cfg.d_rnn else 0)
-    if args.n_layers:
-        period = len(cfg.pattern)
-        n = max(period, (args.n_layers // period) * period)
-        kw.update(n_layers=n + len(cfg.tail))
-    if args.vocab:
-        kw.update(vocab=args.vocab)
-    if cfg.n_frontend_tokens:
-        kw.update(n_frontend_tokens=min(cfg.n_frontend_tokens, 8), d_frontend=16)
-    if cfg.n_experts > 8:
-        kw.update(n_experts=8, top_k=min(cfg.top_k, 2), n_experts_padded=0,
-                  fsdp_experts=False)
-    return cfg.with_(**kw)
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:

@@ -21,11 +21,14 @@ The combine sums each token's k contributions in sorted-row order (expert
 ascending), the order the reference's CPU scatter-add takes, with plain
 adds and no atomics, so two runs on the card agree bit for bit. A
 padded or inactive decode row routes and takes capacity exactly as in JAX,
-so capacity drops depend on the batch as they do there.
+so capacity drops depend on the batch as they do there. In training, the
+backwards of its gathers accumulate with ``index_put_(accumulate=True)``,
+which sorts its indices on the card: deterministic under the train step's
+settings, so two card steps from one state agree bit for bit too.
 
 The reference's mesh branch (shard_map over the data-parallel axes, the
 FSDP gather of ``fsdp_experts``) runs only under a device mesh; the port
-has none (ROADMAP, queue 1 item 8), so ``fsdp_experts`` is accepted and
+has none (ROADMAP, queue 1: distribution), so ``fsdp_experts`` is accepted and
 ignored, as JAX ignores it without a mesh.
 """
 from __future__ import annotations

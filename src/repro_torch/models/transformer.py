@@ -19,8 +19,10 @@ The vision/audio frontends are stubs: ``batch["frontend_embeds"]`` is
 projected by ``embed.w_front`` and prepended to the token embeddings
 (`models.frontends`). Without a device mesh the JAX package's sharding
 hooks (`_vocab_shard`, `_seq_shard`, `shard_cotangents`) are identities,
-so the port has none (distribution: ROADMAP, queue 1 item 8).
+so the port has none (ROADMAP, queue 1: distribution).
 
+Training: `train_loss` (next-token CE + the MoE aux loss), through
+`forward`, which checkpoints each period when ``cfg.remat == "full"``.
 Serving entry points: `prefill_step`, `init_cache`, `reset_cache_rows`,
 `decode_step`, `decode_chunk` and `rollback_cache_rows`. Caches are
 ``{"periods": {"slot<i>": {...}}, "tail": (...)}`` with period leaves
@@ -37,6 +39,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
@@ -107,15 +110,25 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, device="cuda") -> Dict[st
     return params
 
 
+def _bf16_like(arr: np.ndarray) -> bool:
+    """An ``ml_dtypes.bfloat16`` array (what ``np.asarray`` of a JAX bf16
+    array gives) or its 2-byte void records (what ``np.load`` gives back)."""
+    return arr.dtype.kind == "V" and arr.dtype.itemsize == 2
+
+
 def params_from_numpy(tree, device="cuda"):
     """A JAX parameter (or cache) tree, as numpy arrays, to torch tensors on
-    ``device`` under the same keys (tuples stay tuples)."""
+    ``device`` under the same keys (tuples stay tuples). bfloat16 arrays
+    cross as their 16-bit patterns, exactly."""
     device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
         return tuple(params_from_numpy(v, device) for v in tree)
-    return torch.from_numpy(np.array(tree)).to(device)
+    arr = np.array(tree)
+    if _bf16_like(arr):
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
 
 
 def _period(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
@@ -175,19 +188,50 @@ def _unembed(params: Dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 def forward(params: Dict, batch: Dict, cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full forward: batch {tokens [B,S], frontend_embeds?} -> (logits, aux).
-    With a frontend the logits cover its n_frontend_tokens positions too."""
+    With a frontend the logits cover its n_frontend_tokens positions too.
+
+    With ``cfg.remat == "full"`` and autograd recording, each period is
+    checkpointed (its activations recomputed in the backward), as the
+    reference's ``jax.checkpoint(period_fn)``; the recomputation runs the
+    same ops on the same inputs, so it reproduces the saved forward exactly,
+    MoE routing included. Under ``no_grad`` (serving) nothing changes."""
+    def period_fn(x, aux, slot_params):
+        for si, kind in enumerate(cfg.pattern):
+            x, a = _apply_block(kind, slot_params[f"slot{si}"], x, cfg)
+            aux = aux + a
+        return x, aux
+
+    remat = cfg.remat == "full" and torch.is_grad_enabled()
     x = _embed(params, batch, cfg)
     aux = torch.zeros((), device=x.device)
     for i in range(cfg.n_periods):
         slot_params = _period(params["periods"], i)
-        for si, kind in enumerate(cfg.pattern):
-            x, a = _apply_block(kind, slot_params[f"slot{si}"], x, cfg)
-            aux = aux + a
+        if remat:
+            x, aux = checkpoint(period_fn, x, aux, slot_params, use_reentrant=False)
+        else:
+            x, aux = period_fn(x, aux, slot_params)
     for i, kind in enumerate(cfg.tail):
         x, a = _apply_block(kind, params["tail"][i], x, cfg)
         aux = aux + a
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return _unembed(params, x, cfg), aux
+
+
+def train_loss(params: Dict, batch: Dict, cfg: ArchConfig, aux_weight: float = 0.01
+               ) -> torch.Tensor:
+    """Next-token cross-entropy (+ MoE load-balance aux), in the reference's
+    order: the frontend positions dropped (they carry no labels), fp32
+    logits, ``logsumexp - logits[label]`` averaged, plus ``aux_weight * aux``.
+    ``batch["labels"]`` is int64 [B, S_tok], as `token_batch` makes it."""
+    logits, aux = forward(params, batch, cfg)
+    labels = batch["labels"]
+    if cfg.frontend:
+        logits = logits[:, cfg.n_frontend_tokens:]
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, labels[..., None].long(), dim=-1)[..., 0]
+    ce = torch.mean(logz - gold)
+    return ce + aux_weight * aux
 
 
 def prefill_step(params: Dict, batch: Dict, cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:

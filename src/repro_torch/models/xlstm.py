@@ -71,6 +71,19 @@ def _mlstm_qkv_gates(p: Dict, x: torch.Tensor, n_heads: int):
     return q, k, v, li, lf, gate_out
 
 
+def _prefix_sum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive cumulative sum over the last axis in log2(L) doubling steps
+    of plain adds (Hillis-Steele; JAX's CPU cumsum is a parallel scan too).
+    Deterministic, and the same bits on the card as on the CPU: the card's
+    ``torch.cumsum`` on floats is neither, and raises inside a training
+    step (`train.train_step.deterministic`)."""
+    n, step = x.shape[-1], 1
+    while step < n:
+        x = torch.cat([x[..., :step], x[..., step:] + x[..., :-step]], dim=-1)
+        step *= 2
+    return x
+
+
 def mlstm_block(p: Dict, x: torch.Tensor, n_heads: int, chunk: int = 256) -> torch.Tensor:
     """Chunkwise-parallel mLSTM over [B, S, d]."""
     b, s, d = x.shape
@@ -95,7 +108,7 @@ def mlstm_block(p: Dict, x: torch.Tensor, n_heads: int, chunk: int = 256) -> tor
     hs = []
     for ci in range(nc):
         qi, ki, vi, lii, lfi = qc[ci], kc[ci], vc[ci], lic[ci], lfc[ci]
-        Fc = torch.cumsum(lfi, dim=-1)                        # [B,H,L] inclusive
+        Fc = _prefix_sum(lfi)                                 # [B,H,L] inclusive
         # per-position stabilizer (the sequential m), in closed form
         g = torch.maximum(m[..., None], torch.cummax(lii - Fc, dim=2).values)
         m_i = Fc + g                                          # [B,H,L]

@@ -3,33 +3,66 @@
 Layout:  <dir>/step_<N>/arrays_p0.npz + manifest.json, published by atomic
 rename of a tmp directory — a reader never sees a partial checkpoint, and a
 writer dying mid-save leaves the previous checkpoint intact. Leaves are
-numbered in sorted-key order and named by their key path
-(``['params']['conv0']['w']``), exactly as the reference names them, so a
-checkpoint written by either package restores in the other.
+numbered in the tree's order (dict keys sorted, sequences by index) and
+named by their key path (``['params']['conv0']['w']``,
+``['params']['tail'][0]['norm1']``), exactly as the reference names them,
+so a checkpoint written by either package restores in the other.
 
 Restore takes a *template* tree (the state itself will do): each leaf is
 checked against the template's shape, cast to its dtype and placed on its
 device.
+
+bfloat16 leaves are stored as the reference stores them: numpy has no
+bfloat16, and JAX's ``np.asarray`` of one is an ``ml_dtypes`` array that
+``np.savez`` writes as 2-byte void records (header descr ``'<V2'``, the
+manifest's dtype ``bfloat16``). The port writes the same bytes under the
+same header, and reads such a leaf back by the manifest's dtype, bit for
+bit. (The reference's own `restore` cannot read it back: ``astype`` of a
+``|V2`` array to bfloat16 raises.)
 """
 from __future__ import annotations
 
 import json
 import os
 import shutil
-from typing import Any, Optional
+import zipfile
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .tree import keystr, tree_leaves_with_path
+from .tree import keystr, tree_leaves_with_path, tree_map_with_path
 
 PROCESS = 0   # one process; the file name keeps the reference's multi-host shape
+BF16 = "bfloat16"
 
 
-def _to_numpy(leaf) -> np.ndarray:
+def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
+    """A leaf as a numpy array and its manifest dtype; a bfloat16 tensor as
+    its 16-bit patterns."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:
+            return leaf.view(torch.int16).numpy(), BF16
+        leaf = leaf.numpy()
+    arr = np.asarray(leaf)
+    return arr, str(arr.dtype)
+
+
+def _write_npz(path: str, arrays: dict, bf16: set) -> None:
+    """``np.savez(path, **arrays)``, member by member as numpy writes it
+    (stored, zip64), with the keys in ``bf16`` (16-bit patterns) under the
+    header an ``ml_dtypes.bfloat16`` array gets."""
+    with zipfile.ZipFile(path, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, arr in arrays.items():
+            with zf.open(key + ".npy", "w", force_zip64=True) as fid:
+                if key in bf16:
+                    np.lib.format.write_array_header_1_0(
+                        fid, {"descr": "<V2", "fortran_order": False, "shape": arr.shape})
+                    fid.write(np.ascontiguousarray(arr).tobytes())
+                else:
+                    np.lib.format.write_array(fid, arr)
 
 
 def save(ckpt_dir: str, step: int, tree: Any, *, keep: int = 3) -> str:
@@ -38,15 +71,16 @@ def save(ckpt_dir: str, step: int, tree: Any, *, keep: int = 3) -> str:
     tmp = final + f".tmp.{os.getpid()}"
     os.makedirs(tmp, exist_ok=True)
 
-    arrays = {}
+    arrays, bf16 = {}, set()
     manifest = {"step": step, "leaves": [], "process": PROCESS}
     for i, (path, leaf) in enumerate(tree_leaves_with_path(tree)):
         key = f"leaf_{i}"
-        arrays[key] = _to_numpy(leaf)
+        arrays[key], dtype = _to_numpy(leaf)
+        if dtype == BF16:
+            bf16.add(key)
         manifest["leaves"].append({"key": key, "path": keystr(path),
-                                   "shape": list(arrays[key].shape),
-                                   "dtype": str(arrays[key].dtype)})
-    np.savez(os.path.join(tmp, f"arrays_p{PROCESS}.npz"), **arrays)
+                                   "shape": list(arrays[key].shape), "dtype": dtype})
+    _write_npz(os.path.join(tmp, f"arrays_p{PROCESS}.npz"), arrays, bf16)
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
     if os.path.exists(final):
@@ -80,6 +114,14 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
+def _to_tensor(arr: np.ndarray, dtype: str) -> torch.Tensor:
+    """A stored leaf as a tensor; 2-byte records the manifest calls
+    bfloat16 as their bits."""
+    if dtype == BF16:
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
+
+
 def restore(ckpt_dir: str, step: int, template: Any) -> Any:
     """Restore into the structure of ``template`` (a tree of tensors): shapes
     checked (ValueError), missing leaves refused (KeyError), dtypes and
@@ -88,18 +130,16 @@ def restore(ckpt_dir: str, step: int, template: Any) -> Any:
     with open(os.path.join(final, "manifest.json")) as f:
         manifest = json.load(f)
     with np.load(os.path.join(final, f"arrays_p{PROCESS}.npz")) as data:
-        loaded = {m["path"]: data[m["key"]] for m in manifest["leaves"]}
+        loaded = {m["path"]: (data[m["key"]], m["dtype"]) for m in manifest["leaves"]}
 
-    def build(t, path):
-        if isinstance(t, dict):
-            return {k: build(v, path + (k,)) for k, v in t.items()}
+    def build(path, t):
         key = keystr(path)
         if key not in loaded:
             raise KeyError(f"checkpoint missing leaf {key}")
-        arr = loaded[key]
+        arr, dtype = loaded[key]
         if tuple(arr.shape) != tuple(t.shape):
             raise ValueError(f"shape mismatch for {key}: ckpt {arr.shape} vs "
                              f"template {tuple(t.shape)}")
-        return torch.from_numpy(np.array(arr)).to(dtype=t.dtype, device=t.device)
+        return _to_tensor(arr, dtype).to(dtype=t.dtype, device=t.device)
 
-    return build(template, ())
+    return tree_map_with_path(build, template)

@@ -1,4 +1,4 @@
-"""Optimizers as pure transforms over nested dicts of tensors: SGD-M, AdamW, Adafactor.
+"""Optimizers as pure transforms over trees of tensors: SGD-M, AdamW, Adafactor.
 
 No external deps — each optimizer is (init, update):
     state = init(params)
@@ -135,10 +135,11 @@ def adafactor(decay: float = 0.8, eps: float = 1e-30, clip_thresh: float = 1.0,
             u = u / torch.clamp(rms / clip_thresh, min=1.0)
             return -lr * (u + weight_decay * p.to(torch.float32)), ns
 
-        # walk the params' structure: each leaf's state is itself a dict
+        # walk the params' structure: each leaf's state is itself a dict, and
+        # each leaf's result an (update, state) pair
         out = tree_map(lambda p, g, s: leaf(g, s, p), params, grads, state["s"])
-        return (tree_map(lambda o: o[0], out),
-                {"s": tree_map(lambda o: o[1], out), "t": t})
+        return (tree_map(lambda p, o: o[0], params, out),
+                {"s": tree_map(lambda p, o: o[1], params, out), "t": t})
 
     return Optimizer(init, update)
 

@@ -1,29 +1,48 @@
-"""Nested-dict trees: what ``jax.tree`` does for the reference's pytrees.
+"""Nested trees of dicts, tuples and lists: what ``jax.tree`` does for the
+reference's pytrees.
 
-Leaves are tensors (or anything that is not a dict); dict keys are walked
-in sorted order, as JAX flattens dicts, so sums over leaves and checkpoint
-leaf numbering follow the reference's order.
+Dicts, tuples and lists are nodes and everything else is a leaf. Dict keys
+are walked in sorted order, as JAX flattens dicts, and sequences in index
+order, so sums over leaves and checkpoint leaf numbering follow the
+reference's order. An empty tuple (the LM's ``tail`` where an arch has
+none) holds no leaves, as in JAX.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, List, Tuple
 
 
-def tree_map(fn: Callable, tree, *rest):
-    """``fn`` applied leafwise over trees of one structure."""
+def _is_node(tree) -> bool:
+    return isinstance(tree, (dict, tuple, list))
+
+
+def tree_map_with_path(fn: Callable, tree, *rest, path: Tuple = ()):
+    """``fn(path, leaf, *rest_leaves)`` over trees of one structure
+    (``tree``'s); ``path`` as in `tree_leaves_with_path`."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
-    return fn(tree, *rest)
+        return {k: tree_map_with_path(fn, tree[k], *(r[k] for r in rest), path=path + (k,))
+                for k in tree}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map_with_path(fn, t, *(r[i] for r in rest), path=path + (i,))
+                          for i, t in enumerate(tree))
+    return fn(path, tree, *rest)
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` applied leafwise over trees of one structure (``tree``'s)."""
+    return tree_map_with_path(lambda _, *leaves: fn(*leaves), tree, *rest)
 
 
 def tree_leaves_with_path(tree, path: Tuple = ()) -> List[Tuple[Tuple, Any]]:
-    """[(key path, leaf)] in sorted-key order."""
-    if isinstance(tree, dict):
-        out = []
-        for k in sorted(tree):
-            out.extend(tree_leaves_with_path(tree[k], path + (k,)))
-        return out
-    return [(path, tree)]
+    """[(key path, leaf)]: dict keys sorted, sequences in index order (an
+    index enters the path as an int)."""
+    if not _is_node(tree):
+        return [(path, tree)]
+    items = sorted(tree.items()) if isinstance(tree, dict) else enumerate(tree)
+    out = []
+    for k, sub in items:
+        out.extend(tree_leaves_with_path(sub, path + (k,)))
+    return out
 
 
 def tree_leaves(tree) -> List[Any]:
@@ -31,5 +50,6 @@ def tree_leaves(tree) -> List[Any]:
 
 
 def keystr(path: Tuple) -> str:
-    """``['params']['conv0']['w']``: the reference's ``jax.tree_util.keystr``."""
+    """``['params']['tail'][0]['norm1']``: the reference's
+    ``jax.tree_util.keystr`` (a dict key as its repr, a sequence index bare)."""
     return "".join(f"[{k!r}]" for k in path)

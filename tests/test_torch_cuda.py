@@ -16,7 +16,10 @@ bit-identical to its ordered plain version (k ascending); the
 unfused pipeline bit-identical to the fused one; a training step's loss
 within 1e-4 and each gradient's relative L2 difference within 1e-3 of the
 CPU's (cuDNN and the CPU sum in different orders), two card steps from one
-state bit-identical and a crash -> resume equal to the clean run. The int4 matmul within
+state bit-identical and a crash -> resume equal to the clean run; the
+same for LM training (every arch reduced, in bf16 with remat, two steps
+from one state bit-identical; granite-moe's crash -> resume equal to the
+clean run) and a bf16 checkpoint's round trip on the card. The int4 matmul within
 1e-4 * max(1, max|ref|) (integer weights, fp32 sums in another order), a
 row equal to the M = 1 call's, two calls and every geometry and mode at the
 chosen K splits bit-identical;
@@ -462,6 +465,106 @@ def test_training_crash_resume_bit_identical_on_card(cuda, tmp_path):
         return loop.run(restored, 8, start_step=start)
 
     assert _tree_equal(run(tmp_path / "clean"), run(tmp_path / "crash", fail_at_step=5))
+
+
+def _lm_train_cfg(arch):
+    """An LM arch cut as `tests/test_models_smoke.py` cuts it, but in its
+    own bf16 with ``remat="full"``, as a full-size run trains."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch(arch)
+    kw = dict(dtype="bfloat16", remat="full", d_model=48, head_dim=12, q_chunk=8, kv_chunk=8,
+              mlstm_chunk=8, vocab=101, fsdp_experts=False,
+              n_layers=2 * len(cfg.pattern) + len(cfg.tail))
+    if cfg.d_ff:
+        kw["d_ff"] = 96
+    if cfg.moe_d_ff:
+        kw["moe_d_ff"] = 32
+    if cfg.d_rnn:
+        kw["d_rnn"] = 48
+    if cfg.n_experts:
+        kw.update(n_experts=8, top_k=min(cfg.top_k, 2), n_experts_padded=0)
+    if cfg.window:
+        kw["window"] = 8
+    if cfg.frontend:
+        kw.update(n_frontend_tokens=4, d_frontend=16)
+    return cfg.with_(**kw)
+
+
+def _lm_training(cfg, device, steps=6):
+    from repro_torch.data.synthetic import _generator, token_batch
+    from repro_torch.models.frontends import synth_frontend
+    from repro_torch.train.optim import make_optimizer
+    from repro_torch.train.schedule import warmup_cosine
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    opt = make_optimizer(cfg.optimizer)
+    step = make_train_step(lambda p, b: tf.train_loss(p, b, cfg), opt,
+                           warmup_cosine(3e-3, 2, steps))
+    n_front = cfg.n_frontend_tokens if cfg.frontend else 0
+
+    def make_batch(i):
+        b = token_batch(0, i, 4, 32 - n_front, cfg.vocab, device=device)
+        if cfg.frontend:
+            b["frontend_embeds"] = synth_frontend(_generator(0, i), cfg, 4, "cpu").to(device)
+        return b
+    params = tf.init_params(torch.Generator(device=device).manual_seed(0), cfg, device)
+    return step, make_batch, init_train_state(params, opt)
+
+
+LM_ARCHS = ("granite-34b", "granite-moe-3b-a800m", "llama4-maverick-400b-a17b", "minitron-8b",
+            "musicgen-large", "phi-3-vision-4.2b", "qwen1.5-4b", "recurrentgemma-2b",
+            "starcoder2-15b", "xlstm-125m")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_train_step_is_run_to_run_deterministic(cuda, arch):
+    """Every arch (reduced, bf16, remat="full"; the MoE's gathers and their
+    index_put backwards, the mLSTM's prefix sums) under the step's
+    deterministic settings: no op refuses, and two steps from one state on
+    one batch give bit-identical loss, parameters and optimizer state."""
+    step, make_batch, state = _lm_training(_lm_train_cfg(arch), cuda)
+    batch = make_batch(0)
+    a, ma = step(state, batch)
+    b, mb = step(state, batch)
+    assert torch.isfinite(ma["loss"])
+    assert torch.equal(ma["loss"], mb["loss"]) and torch.equal(ma["grad_norm"], mb["grad_norm"])
+    assert _tree_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_lm_crash_resume_bit_identical_on_card(cuda, tmp_path):
+    """granite-moe (reduced, bf16, remat) on the card: a run that fails at
+    step 3 and resumes from its step-2 checkpoint (bf16 leaves on disk as
+    2-byte records) equals the clean 6-step run bit for bit."""
+    from repro_torch.train.loop import TrainLoop
+    cfg = _lm_train_cfg("granite-moe-3b-a800m")
+
+    def run(ckpt_dir, fail_at_step=None):
+        step, make_batch, state = _lm_training(cfg, cuda)
+        loop = TrainLoop(step, make_batch, ckpt_dir=str(ckpt_dir), ckpt_every=2,
+                         log_every=100, log_fn=lambda *a: None)
+        if fail_at_step is None:
+            return loop.run(state, 6)
+        with pytest.raises(RuntimeError, match="simulated"):
+            loop.run(state, 6, fail_at_step=fail_at_step)
+        restored, start = loop.maybe_restore(state)
+        assert start == 2
+        return loop.run(restored, 6, start_step=start)
+
+    assert _tree_equal(run(tmp_path / "clean"), run(tmp_path / "crash", fail_at_step=3))
+
+
+@pytest.mark.cuda
+def test_bf16_checkpoint_round_trip_on_card(cuda, tmp_path):
+    """A bf16 LM train state on the card saves and restores onto the card
+    bit for bit (bf16 parameters, fp32 moments, int32 counters)."""
+    from repro_torch.train import checkpoint as ckpt
+    _, _, state = _lm_training(_lm_train_cfg("recurrentgemma-2b"), cuda)
+    assert state["params"]["embed"]["w_tok"].dtype == torch.bfloat16
+    ckpt.save(str(tmp_path), 3, state)
+    out = ckpt.restore(str(tmp_path), 3, state)
+    assert out["params"]["embed"]["w_tok"].device.type == cuda.type
+    assert _tree_equal(out, state)
 
 
 # qwen1.5-4b's projections at decode (4 slots) and prefill (512) widths, the

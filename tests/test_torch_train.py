@@ -9,11 +9,21 @@ gradients rtol 1e-6; `vgg9_forward` logits 1e-5 and spike counts exact;
 `vgg9_loss` 1e-6 and its gradients rtol 1e-4 / atol 1e-6 (XLA's CPU
 convolution and `F.conv2d` sum in different orders); one AdamW step from a
 mid-training state: params within 1e-6.
+
+LM trees (reduced as `tests/test_models_smoke.py` reduces them): tuples
+are nodes, so key paths and leaf order equal JAX's ``keystr`` walk; each
+optimizer steps such a tree within 1e-6 of JAX's; every arch takes one
+train step; fp32 checkpoints cross both ways and bf16 ones from JAX to the
+port bit for bit, a port-written bf16 checkpoint has JAX's manifest and
+member bytes, and an LM crash -> resume equals the clean run bit for bit.
 """
 import dataclasses
+import functools
+import json
 import os
 import subprocess
 import sys
+import zipfile
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +31,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_arch as jax_get_arch
+from repro.configs import all_archs as jax_all_archs
 from repro.configs import vgg9_snn as jax_cfgs
 from repro.core import coding as jax_coding
 from repro.core import sparsity as jax_sparsity
@@ -30,23 +42,26 @@ from repro.core.lif import lif_scan as jax_lif_scan
 from repro.core.lif import spike_surrogate as jax_spike_surrogate
 from repro.core.quant import fake_quant as jax_fake_quant
 from repro.core.quant import qat_params as jax_qat_params
+from repro.models import transformer as jax_lm
 from repro.models import vgg9 as jax_vgg9
 from repro.train import checkpoint as jax_ckpt
 from repro.train import optim as jax_optim
 from repro.train import schedule as jax_schedule
 from repro.train import train_step as jax_train_step
+from repro_torch.configs import get_arch as torch_get_arch
 from repro_torch.configs import vgg9_snn as torch_cfgs
 from repro_torch.core import coding, sparsity
 from repro_torch.core.lif import LIFParams, leaky_integrate, lif_scan, spike_surrogate
 from repro_torch.core.quant import fake_quant, qat_params
-from repro_torch.data.synthetic import image_batch
+from repro_torch.data.synthetic import image_batch, token_batch
 from repro_torch.launch import train_vgg9
+from repro_torch.models import transformer as lm
 from repro_torch.models import vgg9
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import optim, schedule
 from repro_torch.train.loop import TrainLoop
 from repro_torch.train.train_step import init_train_state, make_train_step, value_and_grad
-from repro_torch.train.tree import tree_leaves_with_path
+from repro_torch.train.tree import keystr, tree_leaves_with_path, tree_map
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 
@@ -521,3 +536,255 @@ def test_training_driver_on_the_card_without_one_raises(tmp_path):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="cuda"):
         train_vgg9.main(["--steps", "1", "--ckpt-dir", str(tmp_path)])
+
+
+# ---------------------------------------------------------------------------
+# LM trees: tuple nodes, bf16 leaves, checkpoints
+# ---------------------------------------------------------------------------
+
+LM_ARCHS = sorted(jax_all_archs())
+
+
+def _lm_reduce(cfg, dtype="float32"):
+    """`tests/test_models_smoke.py`'s cut of an LM arch (either package's
+    config), at ``dtype``."""
+    kw = dict(dtype=dtype, remat="none", d_model=48, head_dim=12, q_chunk=8, kv_chunk=8,
+              mlstm_chunk=8, vocab=101, fsdp_experts=False)
+    if cfg.d_ff:
+        kw["d_ff"] = 96
+    if cfg.moe_d_ff:
+        kw["moe_d_ff"] = 32
+    if cfg.d_rnn:
+        kw["d_rnn"] = 48
+    if cfg.n_experts:
+        kw.update(n_experts=8, top_k=min(cfg.top_k, 2), n_experts_padded=0)
+    if cfg.window:
+        kw["window"] = 8
+    if cfg.frontend:
+        kw.update(n_frontend_tokens=4, d_frontend=16)
+    kw["n_layers"] = 2 * len(cfg.pattern) + len(cfg.tail)
+    return cfg.with_(**kw)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_lm_params(arch, dtype="float32"):
+    """The reference's init of a reduced LM (immutable arrays, so shared)."""
+    return jax_lm.init_params(jax.random.PRNGKey(0), _lm_reduce(jax_get_arch(arch), dtype))
+
+
+def _jax_lm_state(arch, dtype="float32"):
+    """A mid-training reference AdamW state of a reduced LM (step 7, moments
+    moved off zero)."""
+    opt = jax_optim.adamw()
+    jstate = jax_train_step.init_train_state(_jax_lm_params(arch, dtype), opt)
+    return dict(jstate, step=jnp.asarray(7, jnp.int32),
+                opt=dict(jstate["opt"], t=jnp.asarray(7, jnp.int32),
+                         m=jax.tree.map(lambda x: x + 0.25, jstate["opt"]["m"]),
+                         v=jax.tree.map(lambda x: x + 0.5, jstate["opt"]["v"])))
+
+
+def _port_lm_state(jstate):
+    """The reference state as the port's (bf16 leaves cross as bits)."""
+    tree = jax.tree.map(np.asarray, jstate)
+    return {"params": lm.params_from_numpy(tree["params"], "cpu"),
+            "opt": {"m": lm.params_from_numpy(tree["opt"]["m"], "cpu"),
+                    "v": lm.params_from_numpy(tree["opt"]["v"], "cpu"),
+                    "t": torch.from_numpy(np.array(tree["opt"]["t"]))},
+            "step": torch.from_numpy(np.array(tree["step"]))}
+
+
+def _bits(x):
+    """A leaf's bit patterns, for exact comparison of any float dtype."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        return x.view(torch.int16).numpy() if x.dtype == torch.bfloat16 else x.numpy()
+    x = np.asarray(x)
+    return x.view(np.int16) if x.dtype.itemsize == 2 and x.dtype.kind == "V" else x
+
+
+def _same_bits(ours, ref):
+    """A port tree and a reference tree: the same key paths in the same
+    order, and every leaf's dtype, shape and bits equal."""
+    ref_leaves = [(jax.tree_util.keystr(p), x)
+                  for p, x in jax.tree_util.tree_flatten_with_path(ref)[0]]
+    our_leaves = [(keystr(p), x) for p, x in tree_leaves_with_path(ours)]
+    assert [k for k, _ in our_leaves] == [k for k, _ in ref_leaves]
+    for (key, a), (_, b) in zip(our_leaves, ref_leaves):
+        a, b = _bits(a), _bits(b)
+        assert a.dtype == b.dtype and a.shape == b.shape, key
+        np.testing.assert_array_equal(a, b, err_msg=key)
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_tree_paths_are_the_references(arch):
+    """Tuples are nodes walked by index (an empty tail holds no leaves):
+    the LM train state's key paths and order are JAX's ``keystr``s, e.g.
+    ``['params']['tail'][0]['norm1']['scale']``."""
+    jstate = jax.eval_shape(lambda: jax_train_step.init_train_state(
+        jax_lm.init_params(jax.random.PRNGKey(0), _lm_reduce(jax_get_arch(arch))),
+        jax_optim.adamw()))
+    zeros = jax.tree.map(lambda x: np.zeros(x.shape, x.dtype), jstate)
+    ours = [keystr(p) for p, _ in tree_leaves_with_path(_port_lm_state(zeros))]
+    ref = [jax.tree_util.keystr(p) for p, _ in jax.tree_util.tree_flatten_with_path(jstate)[0]]
+    assert ours == ref
+    if jax_get_arch(arch).tail:
+        assert any(k.startswith("['params']['tail'][0]") for k in ours)
+
+
+def test_tree_map_keeps_tuples_and_lists():
+    tree = {"b": (torch.ones(2), [torch.zeros(1), {"c": torch.ones(3)}]), "a": (), "d": []}
+    out = tree_map(lambda x: x + 1, tree)
+    assert isinstance(out["b"], tuple) and isinstance(out["b"][1], list)
+    assert out["a"] == () and out["d"] == []
+    assert [keystr(p) for p, _ in tree_leaves_with_path(out)] == [
+        "['b'][0]", "['b'][1][0]", "['b'][1][1]['c']"]
+    assert torch.equal(out["b"][1][1]["c"], torch.full((3,), 2.0))
+
+
+@pytest.mark.parametrize("opt_name", ["sgd", "adamw", "adafactor"])
+def test_optimizers_take_lm_trees(opt_name):
+    """Each optimizer steps a tree with a tuple tail, as the reference's
+    does: updates within 1e-6 of JAX's."""
+    arch = "recurrentgemma-2b"
+    jcfg = _lm_reduce(jax_get_arch(arch))
+    jp = _jax_lm_params(arch)
+    jg = jax.tree.map(lambda p: jnp.asarray(_normal(p.size, p.shape, 0.01)), jp)
+    jopt, opt = jax_optim.make_optimizer(opt_name), optim.make_optimizer(opt_name)
+    jupd, jst = jax.jit(jopt.update)(jg, jopt.init(jp), jp, jnp.float32(1e-2))
+    params = lm.params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    grads = lm.params_from_numpy(jax.tree.map(np.asarray, jg), "cpu")
+    upd, st = opt.update(grads, opt.init(params), params, torch.tensor(1e-2))
+    assert isinstance(upd["tail"], tuple) and len(upd["tail"]) == len(jcfg.tail)
+    _assert_trees_close(upd, jupd, rtol=1e-5, atol=1e-6)
+    _assert_trees_close(st, jst, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_train_step_runs_for_every_arch(arch):
+    """`init_train_state` and `make_train_step` take every arch's tree with
+    its own optimizer: one step, a finite loss, every parameter moved by
+    its update, the tree's structure kept."""
+    cfg = _lm_reduce(torch_get_arch(arch))
+    opt = optim.make_optimizer(cfg.optimizer)
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    state = init_train_state(params, opt)
+    rng = np.random.default_rng(0)
+    n_tok = 24 - (cfg.n_frontend_tokens if cfg.frontend else 0)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, n_tok))),
+             "labels": torch.from_numpy(rng.integers(0, cfg.vocab, (2, n_tok)))}
+    if cfg.frontend:
+        batch["frontend_embeds"] = torch.from_numpy(_normal(1, (2, 4, 16), 0.02))
+    new, metrics = make_train_step(lambda p, b: lm.train_loss(p, b, cfg), opt,
+                                   schedule.constant(1e-3))(state, batch)
+    assert np.isfinite(float(metrics["loss"])) and float(metrics["grad_norm"]) > 0
+    assert [p for p, _ in tree_leaves_with_path(new)] == \
+        [p for p, _ in tree_leaves_with_path(state)]
+    assert isinstance(new["params"]["tail"], tuple)
+    assert int(new["step"]) == 1 and int(new["opt"]["t"]) == 1
+
+
+def test_lm_checkpoint_fp32_both_ways(tmp_path):
+    """An fp32 LM train state (recurrentgemma: a tuple tail) written by JAX
+    restores in the port bit for bit, and written by the port restores in
+    JAX bit for bit."""
+    jstate = _jax_lm_state("recurrentgemma-2b")
+    template = _port_lm_state(jax.tree.map(jnp.zeros_like, jstate))
+    jax_ckpt.save(str(tmp_path / "ref"), 7, jstate)
+    _same_bits(ckpt.restore(str(tmp_path / "ref"), 7, template), jstate)
+    ckpt.save(str(tmp_path / "port"), 7, _port_lm_state(jstate))
+    out = jax_ckpt.restore(str(tmp_path / "port"), 7, jax.eval_shape(lambda: jstate))
+    _same_bits(_port_lm_state(out), jstate)
+
+
+def test_lm_checkpoint_bf16_from_the_reference(tmp_path):
+    """A bf16 LM train state (bf16 parameters, fp32 moments; recurrentgemma:
+    a tuple tail) written by JAX (bf16 leaves as 2-byte records) restores in
+    the port bit for bit."""
+    jstate = _jax_lm_state("recurrentgemma-2b", "bfloat16")
+    assert jstate["params"]["embed"]["w_tok"].dtype == jnp.bfloat16
+    template = _port_lm_state(jax.tree.map(jnp.zeros_like, jstate))
+    assert template["params"]["embed"]["w_tok"].dtype == torch.bfloat16
+    jax_ckpt.save(str(tmp_path), 7, jstate)
+    _same_bits(ckpt.restore(str(tmp_path), 7, template), jstate)
+
+
+def _npz_members(ckpt_dir, step):
+    final = os.path.join(str(ckpt_dir), f"step_{step:08d}")
+    with open(os.path.join(final, "manifest.json")) as f:
+        manifest = json.load(f)
+    with zipfile.ZipFile(os.path.join(final, "arrays_p0.npz")) as zf:
+        return manifest, {name: zf.read(name) for name in zf.namelist()}
+
+
+def test_port_bf16_checkpoint_is_the_references_bytes(tmp_path):
+    """The port writes a bf16 LM state as JAX does: the same manifest
+    (paths, keys, shapes, dtype ``bfloat16``) and every ``.npy`` member
+    byte for byte (header and records)."""
+    jstate = _jax_lm_state("recurrentgemma-2b", "bfloat16")
+    jax_ckpt.save(str(tmp_path / "ref"), 7, jstate)
+    ckpt.save(str(tmp_path / "port"), 7, _port_lm_state(jstate))
+    ref_manifest, ref_members = _npz_members(tmp_path / "ref", 7)
+    manifest, members = _npz_members(tmp_path / "port", 7)
+    assert manifest == ref_manifest
+    assert any(m["dtype"] == "bfloat16" for m in manifest["leaves"])
+    assert members == ref_members
+
+
+def test_bf16_leaves_round_trip_bit_exactly(tmp_path):
+    """Every bf16 bit pattern (NaNs, infinities and subnormals too) written
+    by the port reads back unchanged, beside fp32 and int32 leaves in a
+    tuple; a bf16 leaf restores into an fp32 template exactly."""
+    bits = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(torch.int16)
+    tree = {"w": bits.view(torch.bfloat16).reshape(256, 256),
+            "tail": ({"a": torch.randn(3), "n": torch.arange(4, dtype=torch.int32)},)}
+    ckpt.save(str(tmp_path), 1, tree)
+    out = ckpt.restore(str(tmp_path), 1, tree)
+    assert out["w"].dtype == torch.bfloat16 and isinstance(out["tail"], tuple)
+    assert torch.equal(out["w"].view(torch.int16), tree["w"].view(torch.int16))
+    assert torch.equal(out["tail"][0]["a"], tree["tail"][0]["a"])
+    assert torch.equal(out["tail"][0]["n"], tree["tail"][0]["n"])
+    finite = {"w": torch.tensor([1.5, -2.25, 3e-3], dtype=torch.bfloat16)}
+    ckpt.save(str(tmp_path), 2, finite)
+    wide = ckpt.restore(str(tmp_path), 2, {"w": torch.zeros(3)})
+    assert wide["w"].dtype == torch.float32 and torch.equal(wide["w"], finite["w"].float())
+
+
+def test_snn_checkpoint_keeps_its_leaf_names_and_order(jax_params, tmp_path):
+    """An SNN train state (all dicts) checkpoints under the same manifest
+    and member bytes as the reference writes for it."""
+    jstate, _ = _state_pair(jax_params)
+    jax_ckpt.save(str(tmp_path / "ref"), 7, jstate)
+    ckpt.save(str(tmp_path / "port"), 7,
+              vgg9.train_state_from_numpy(jax.tree.map(np.asarray, jstate), "cpu"))
+    ref_manifest, ref_members = _npz_members(tmp_path / "ref", 7)
+    manifest, members = _npz_members(tmp_path / "port", 7)
+    assert manifest == ref_manifest and members == ref_members
+    assert [m["path"] for m in manifest["leaves"]][:2] == [
+        "['opt']['m']['conv0']['b']", "['opt']['m']['conv0']['w']"]
+
+
+def _lm_training(ckpt_dir, arch="granite-moe-3b-a800m"):
+    cfg = _lm_reduce(torch_get_arch(arch))
+    opt = optim.make_optimizer(cfg.optimizer)
+    step = make_train_step(lambda p, b: lm.train_loss(p, b, cfg), opt,
+                           schedule.warmup_cosine(3e-3, 2, 5))
+    loop = TrainLoop(step, lambda i: token_batch(0, i, 2, 16, cfg.vocab),
+                     ckpt_dir=str(ckpt_dir), ckpt_every=2, log_every=100,
+                     log_fn=lambda *a: None)
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    return loop, init_train_state(params, opt)
+
+
+def test_lm_crash_resume_bit_identical(tmp_path):
+    """An LM (MoE, empty tuple tail) that fails at step 3 and resumes from
+    its step-2 checkpoint ends bit-identical to the clean 5-step run."""
+    loop1, s1 = _lm_training(tmp_path / "clean")
+    final1 = loop1.run(s1, 5)
+    loop2, s2 = _lm_training(tmp_path / "crash")
+    with pytest.raises(RuntimeError, match="simulated"):
+        loop2.run(s2, 5, fail_at_step=3)
+    restored, start = loop2.maybe_restore(s2)
+    assert start == 2
+    final2 = loop2.run(restored, 5, start_step=start)
+    for (pa, a), (pb, b) in zip(tree_leaves_with_path(final1), tree_leaves_with_path(final2)):
+        assert pa == pb and a.dtype == b.dtype and torch.equal(a, b), pa
