@@ -143,7 +143,33 @@ Run from the root of a checkout. Phases, one line or block each:
              checkpoint's bf16 leaves restoring bit for bit; then
              `python -m repro_torch.launch.train` (its defaults) as a
              subprocess on the card, which must exit 0 and print its final
-             loss.
+             loss;
+12. dist   — distribution, every shard and rank on the one card: (a) phase
+             4's 17 requests at full CIFAR10 width, fp32 and int4, through
+             EngineCore + SNNRunner under an in-process data mesh of two
+             shards of cuda:0: every result bit for bit phase 4's solo
+             engine's, kernels 1-3 launched twice as often per step, the
+             near-silent request's skip rate above a dense one's, host ms
+             per step beside solo's; (b) `compressed_psum` on two gloo
+             ranks holding CUDA tensors (cuda:0) and on two CPU ranks, over
+             seeded gradients of xlstm-125m's full-size leaf shapes, per
+             tensor and per channel: mean gradients and residuals bit for
+             bit equal, the residual invariant within f32 rounding, wire
+             bytes and ms per call; (c) xlstm-125m at full width and depth
+             in fp32 through `launch.train` under torchrun on two ranks of
+             cuda:0 (gloo), 3 steps plain and 3 with --compress-grads
+             (this script re-enters itself as each rank with
+             `--train-rank`): every rank's parameters and optimizer state
+             equal (fingerprints after every step, every bit after the
+             last), non-zero residuals, the plain first step equal to one
+             process's step on the same two halves averaged in rank order,
+             and within 1e-5 of one step on the whole batch (loss and
+             parameter tree; each parameter within 2 lr; the AdamW
+             moments' difference reported), ms per step; then
+             --compress-grads at world size 1 on
+             NCCL as a plain CLI; (d) `launch.serve --data-shard 2` on a
+             one-card machine and `--workers 2 --data-shard 2` refused with
+             the reference's messages.
 
 Phase 3 holds `spike_matmul_mapped` at spike densities 0.1, 0.33 and 1.0:
 within 1e-4 of the plain product, bit for bit the plain k-ascending sum
@@ -188,6 +214,8 @@ block geometry it has at each served shape and density, and `spike_matmul`
 at every geometry it has at each of the unfused pipeline's shapes and
 density (each result held bit for bit against the k-ascending sum), and
 stops there.
+    python3 chip_smoke.py --phase12
+runs phases 1, 2 and 12 only (its solo engines served on the spot).
 
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero before it. Every per-shape row and serving figure also goes to
@@ -204,6 +232,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+SCRIPT = os.path.abspath(__file__)
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, the fp32
 # (non-tensor-core) rate the fp32 kernels compute at, and the dense bf16
@@ -2827,6 +2856,429 @@ def check_fleet_cli(errors):
     return {k: {"rc": v[0]} for k, v in outs.items()} | {"seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: distribution on the card
+# ---------------------------------------------------------------------------
+
+# 12a's shards and the ranks of 12b and 12c: all on card 0 of a one-card
+# machine, so their times say what splitting and the reductions cost there,
+# not what more cards would give
+DIST_RANKS = 2
+PSUM_ARCH = "xlstm-125m"
+# 12c: the launcher's own flags at xlstm-125m's full width and depth, fp32
+DIST_TRAIN_ARGS = ["--arch", "xlstm-125m", "--d-model", "0", "--n-layers", "0", "--vocab", "0",
+                   "--steps", "3", "--device", "cuda"]
+DIST_TRAIN_TOL = 1e-5
+
+
+def check_sharded_serving(torch, name, cfg, params_cpu, solo, solo_ms, errors):
+    """12a: phase 4's 17 requests through EngineCore + SNNRunner under an
+    in-process data mesh of `DIST_RANKS` shards, all on cuda:0: every
+    result bit for bit phase 4's solo engine's, kernels 1-3 launched
+    `DIST_RANKS` times as often per engine step, and the near-silent
+    request's skip rate above a dense one's."""
+    import numpy as np
+    from repro_torch.dist.context import compute_mesh
+    from repro_torch.kernels import CUDA_LAUNCHES, reset_cuda_launches
+    from repro_torch.launch.mesh import DataMesh
+    params = {k: {kk: v.to("cuda") for kk, v in leaf.items()} for k, leaf in params_cpu.items()}
+    imgs = make_requests(torch, cfg)
+    mesh = DataMesh(["cuda:0"] * DIST_RANKS)
+    with compute_mesh(mesh):
+        serve(torch, cfg, params, imgs[:SLOTS], "cuda")           # warm-up
+        reset_cuda_launches()
+        core, res, seconds = serve(torch, cfg, params, imgs, "cuda")
+    launches = dict(CUDA_LAUNCHES)
+    steps = core.stats()["steps_run"]
+    n_spiking = len(cfg.conv_channels) - 1
+    want = dict.fromkeys(CUDA_LAUNCHES, 0)
+    want.update({"dense_conv_lif": DIST_RANKS * steps,
+                 "spike_matmul_mapped": DIST_RANKS * n_spiking * steps,
+                 "lif_epilogue_scan": DIST_RANKS * (n_spiking + 2) * steps})
+    if launches != want:
+        errors.append(f"12a {name}: CUDA_LAUNCHES {launches} != {want} over {steps} steps")
+    bad = [r.request_id for r, s in zip(res, solo) if not same_result(r, s)]
+    if bad or len(res) != len(solo):
+        errors.append(f"12a {name}: results not bit-identical to phase 4's solo engine: {bad}")
+    silent = float(np.mean(list(res[0].stats["skip_rate"].values())))
+    dense = float(np.mean(list(res[1].stats["skip_rate"].values())))
+    if not silent > dense:
+        errors.append(f"12a {name}: near-silent request's skip {silent} <= dense one's {dense}")
+    ms = seconds / steps * 1e3
+    print(f"dist 12a {name}: {len(res)} requests, {SLOTS} slots, EngineCore + SNNRunner under "
+          f"a data mesh of {DIST_RANKS} shards on one card (cuda:0 twice): bit-identical to "
+          f"phase 4's solo engine {not bad}; launches per engine step "
+          f"{ {k: v // steps for k, v in launches.items() if v} } over {steps} steps; "
+          f"skip near-silent {silent:.4f} > dense {dense:.4f}; host {ms:.3f} ms/step against "
+          f"solo's {solo_ms:.3f} ({DIST_RANKS} shards sharing one card: the cost of splitting "
+          f"and re-assembly, not a scaling figure)")
+    return {"launches": launches, "steps": steps, "ms_per_step": ms, "solo_ms_per_step": solo_ms,
+            "bit_identical": not bad, "skip_silent": silent, "skip_dense": dense}
+
+
+def _tree_digest(tree) -> str:
+    """sha256 over the leaves' bytes (keys sorted): equal digests, equal bits."""
+    import hashlib
+    h = hashlib.sha256()
+    for key in sorted(tree):
+        h.update(key.encode())
+        h.update(tree[key].detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _psum_rank(index, store_dir, shapes, out_dir, reps):
+    """12b, one spawned process: rank ``index % DIST_RANKS`` of the card's
+    gloo group (index < DIST_RANKS; CUDA tensors on cuda:0) or of the CPU's.
+    Both draw the same seeded gradients and incoming residuals on the host."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist.compression import compressed_psum, quantize_error_feedback
+    group, rank = divmod(index, DIST_RANKS)
+    device = "cuda" if group == 0 else "cpu"
+    dist.init_process_group("gloo", init_method=f"file://{store_dir}/store{group}", rank=rank,
+                            world_size=DIST_RANKS)
+    gen = torch.Generator().manual_seed(1000 + rank)
+    grads, err = {}, {}
+    for i, (key, shape) in enumerate(shapes):
+        grads[key] = (torch.randn(shape, generator=gen) * 10.0 ** -(i % 4)).to(device)
+        err[key] = (torch.randn(shape, generator=gen) * 10.0 ** -(i % 4 + 3)).to(device)
+    out = {"device": device, "rank": rank}
+    worst = 0.0
+    for key in grads:
+        q, scale, new_e = quantize_error_feedback(grads[key], err[key])
+        comp = grads[key].double() + err[key].double()
+        gap = (q.double() * scale.double() + new_e.double() - comp).abs().max()
+        worst = max(worst, float(gap / comp.abs().max()))
+    out["invariant"] = worst
+    for mode, per_channel in (("per_tensor", False), ("per_channel", True)):
+        mean, new_err = compressed_psum(grads, err, per_channel=per_channel)   # warm-up
+        times = []
+        for _ in range(reps):
+            dist.barrier()
+            if device == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mean, new_err = compressed_psum(grads, err, per_channel=per_channel)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[mode] = {"mean": _tree_digest(mean), "err": _tree_digest(new_err),
+                     "ms": sorted(times)[len(times) // 2],
+                     "residual_nonzero": all(bool(e.abs().sum() > 0) for e in new_err.values())}
+    with open(os.path.join(out_dir, f"psum{index}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def check_compressed_psum(torch, errors, reps=2):
+    """12b: `compressed_psum` over two gloo ranks on cuda:0 (CUDA tensors)
+    and two on the CPU, on seeded gradients of xlstm-125m's full-size leaf
+    shapes: the card's mean gradients and residuals bit for bit the CPU's,
+    per tensor and per channel; the residual invariant exact; wire bytes and
+    ms per call."""
+    import shutil
+    import tempfile
+    import torch.multiprocessing as mp
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.tree import keystr, tree_leaves_with_path
+    t0 = time.perf_counter()
+    cfg = get_arch(PSUM_ARCH).with_(dtype="float32")
+    params = tf.init_params(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+    shapes = [(keystr(p), tuple(x.shape)) for p, x in tree_leaves_with_path(params)]
+    # bytes a rank puts on the wire per step: int8 counts + fp32 scales (one
+    # per leaf, or one per last-axis channel of a leaf with 2+ dims) against
+    # the fp32 gradients; the SUM here reduces the counts as int32
+    elements = sum(math.prod(s) for _, s in shapes)
+    wire = {}
+    for mode in ("per_tensor", "per_channel"):
+        scales = sum(s[-1] if mode == "per_channel" and len(s) >= 2 else 1 for _, s in shapes)
+        wire[mode] = {"int8_and_scales": elements + 4 * scales, "fp32": 4 * elements,
+                      "int32_sum_buffer": 4 * elements}
+    del params
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="psum", dir=os.path.join(ROOT, "build"))
+    try:
+        mp.start_processes(_psum_rank, args=(tmp, shapes, tmp, reps), nprocs=2 * DIST_RANKS,
+                           join=True, start_method="spawn")
+        ranks = []
+        for i in range(2 * DIST_RANKS):
+            with open(os.path.join(tmp, f"psum{i}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    card, cpu = ranks[:DIST_RANKS], ranks[DIST_RANKS:]
+    out = {"seconds": time.perf_counter() - t0, "leaves": len(shapes), "elements": elements,
+           "wire": wire}
+    for mode in ("per_tensor", "per_channel"):
+        equal = all(a[mode]["mean"] == b[mode]["mean"] and a[mode]["err"] == b[mode]["err"]
+                    for a, b in zip(card, cpu))
+        same_mean = len({r[mode]["mean"] for r in ranks}) == 1
+        out[mode] = {"card_equals_cpu": equal, "mean_same_on_all_ranks": same_mean,
+                     "card_ms": [r[mode]["ms"] for r in card],
+                     "cpu_ms": [r[mode]["ms"] for r in cpu],
+                     "residual_nonzero": all(r[mode]["residual_nonzero"] for r in ranks)}
+        if not (equal and same_mean and out[mode]["residual_nonzero"]):
+            errors.append(f"12b {mode}: card == CPU {equal}, one mean on every rank "
+                          f"{same_mean}, residuals non-zero {out[mode]['residual_nonzero']}")
+        w = wire[mode]
+        print(f"dist 12b {mode}: compressed_psum over {DIST_RANKS} gloo ranks sharing cuda:0 "
+              f"(CUDA tensors, staged through the host) on {out['leaves']} {PSUM_ARCH} leaves "
+              f"({out['elements']} elements): mean and residuals bit-identical to {DIST_RANKS} "
+              f"CPU ranks {equal}; wire per rank per step {w['int8_and_scales']} B int8 + "
+              f"scales vs {w['fp32']} B fp32 ({w['fp32'] / w['int8_and_scales']:.2f}x; the "
+              f"SUM reduces an int32 buffer of {w['int32_sum_buffer']} B here); ms per call "
+              f"card {[round(v, 1) for v in out[mode]['card_ms']]} CPU "
+              f"{[round(v, 1) for v in out[mode]['cpu_ms']]}")
+    out["invariant"] = max(r["invariant"] for r in ranks)
+    if not out["invariant"] <= 2.0 ** -24:
+        errors.append(f"12b: |q * scale + new_err - (g + err)| up to {out['invariant']} of amax")
+    print(f"dist 12b: residual invariant q*scale + new_err == g + err within f32 rounding on "
+          f"every rank (worst gap {out['invariant']:.3e} of the leaf's amax, bar 2^-24); "
+          f"{out['seconds']:.1f} s")
+    return out
+
+
+def train_rank(out_path, argv):
+    """12c, one torchrun worker: `repro_torch.launch.train.main(argv)`, its
+    steps timed (synchronized); rank 0 writes the history and step times to
+    ``out_path``."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    from repro_torch.launch import train as launch
+    times = []
+    make = launch.make_train_step
+
+    def timed(*a, **kw):
+        step = make(*a, **kw)
+
+        def run(state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+    launch.make_train_step = timed
+    history = launch.main(argv)
+    if os.environ.get("RANK", "0") == "0":
+        with open(out_path, "w") as f:
+            json.dump({"history": history, "step_ms": times}, f)
+
+
+def split_step(torch, cfg, opt, state, batch, lr):
+    """One process's emulation of the plain data-parallel first step on
+    `DIST_RANKS` ranks: each rank's rows' loss and gradients, summed in rank
+    order in fp32 and divided by the rank count (`rank_order_mean`'s
+    arithmetic), then the step's clip and optimizer -> (state, loss)."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optim import apply_updates, clip_by_global_norm
+    from repro_torch.train.train_step import deterministic, local_rows, value_and_grad
+    from repro_torch.train.tree import tree_map
+    vg = value_and_grad(lambda p, b: tf.train_loss(p, b, cfg))
+    parts = [vg(state["params"], local_rows(batch, r, DIST_RANKS)) for r in range(DIST_RANKS)]
+    n = torch.tensor(float(DIST_RANKS), device=state["step"].device)
+
+    def mean(*xs):
+        total = xs[0].float().clone()
+        for x in xs[1:]:
+            total += x.float()
+        return (total / n).to(xs[0].dtype)
+    with torch.no_grad(), deterministic():
+        loss = mean(*[p[0] for p in parts])
+        grads = tree_map(mean, *[p[1] for p in parts])
+        grads, _ = clip_by_global_norm(grads, 1.0)
+        updates, new_opt = opt.update(grads, state["opt"], state["params"], lr)
+        params = apply_updates(state["params"], updates)
+    return {"params": params, "opt": new_opt, "step": state["step"] + 1}, float(loss)
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def check_dist_training(torch, errors):
+    """12c and 12d, their subprocesses side by side: xlstm-125m at full
+    width and depth in fp32 through `launch.train` under torchrun on
+    `DIST_RANKS` ranks sharing cuda:0 (gloo), 3 steps plain and 3 with
+    --compress-grads, and 3 compressed steps at world size 1 (NCCL) as a
+    plain CLI; the serving CLI's data-shard refusals. The plain run's first
+    step against one process's step on the same global batch."""
+    import re
+    import shutil
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import make_batch_fn, parse_args, reduce_cfg
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optim import make_optimizer
+    from repro_torch.train.schedule import warmup_cosine
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    from repro_torch.train.tree import keystr, tree_leaves_with_path
+    t0 = time.perf_counter()
+    root = os.path.join(ROOT, "build", "chip_smoke_dist")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    torchrun = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+                str(DIST_RANKS), "--master-addr", "127.0.0.1"]
+    runs = {
+        "plain": torchrun + ["--master-port", str(_free_port()), SCRIPT, "--train-rank",
+                             os.path.join(root, "plain.json")] + DIST_TRAIN_ARGS
+        + ["--ckpt-dir", os.path.join(root, "plain"), "--ckpt-every", "1"],
+        "compressed": torchrun + ["--master-port", str(_free_port()), SCRIPT, "--train-rank",
+                                  os.path.join(root, "compressed.json")] + DIST_TRAIN_ARGS
+        + ["--compress-grads"],
+        "world1": [sys.executable, "-m", "repro_torch.launch.train", "--compress-grads"]
+        + DIST_TRAIN_ARGS,
+        "shard": [sys.executable, "-m", "repro_torch.launch.serve", "--workload", "snn",
+                  "--data-shard", str(DIST_RANKS)],
+        "workers": [sys.executable, "-m", "repro_torch.launch.serve", "--workload", "snn",
+                    "--workers", "2", "--data-shard", str(DIST_RANKS)],
+    }
+    procs = {k: subprocess.Popen(v, cwd=ROOT, env=env, text=True, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE) for k, v in runs.items()}
+    outs = {}
+    try:
+        # meanwhile, one process's first step on the same global batch
+        args = parse_args(DIST_TRAIN_ARGS)
+        cfg = reduce_cfg(get_arch(args.arch), args)
+        opt = make_optimizer(cfg.optimizer)
+        step = make_train_step(lambda p, b: tf.train_loss(p, b, cfg), opt,
+                               warmup_cosine(args.lr, 10, args.steps))
+        state = init_train_state(tf.init_params(torch.Generator(device="cuda").manual_seed(
+            args.seed), cfg, "cuda"), opt)
+        make_batch = make_batch_fn(cfg, args.seed, args.batch, args.seq, "cuda")
+        one, m1 = step(state, make_batch(0))
+        split, split_loss = split_step(torch, cfg, opt, state, make_batch(0), m1["lr"])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step(one, make_batch(1))
+        torch.cuda.synchronize()
+        one_ms = (time.perf_counter() - t1) * 1e3
+        for k, proc in procs.items():
+            out, err = proc.communicate(timeout=600)
+            outs[k] = (proc.returncode, out, err)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    res = {"seconds": time.perf_counter() - t0, "rc": {k: v[0] for k, v in outs.items()},
+           "one_process_ms": one_ms}
+    for k in ("plain", "compressed", "world1"):
+        if outs[k][0] != 0:
+            errors.append(f"12c {k}: exit {outs[k][0]}: {outs[k][2][-3000:]}")
+    if errors:
+        return res
+    agree = {k: [ln for ln in outs[k][1].splitlines() if ln.startswith("replicas agree")]
+             for k in ("plain", "compressed")}
+    residuals = [float(v) for v in re.findall(r"rank \d+: residual \|grad_err\| sum (\S+)\n",
+                                              outs["compressed"][1])]
+    runs_json = {}
+    for k in ("plain", "compressed"):
+        with open(os.path.join(root, f"{k}.json")) as f:
+            runs_json[k] = json.load(f)
+    loss0 = runs_json["plain"]["history"][0][1]["loss"]
+    loss_rel = abs(loss0 - float(m1["loss"])) / abs(float(m1["loss"]))
+    ranks = ckpt.restore(os.path.join(root, "plain"), 1, one)
+    # (1) the ranks' step is the one-process step on their two halves,
+    # averaged in rank order: equal value for value (adding the other
+    # ranks' zeros can flip the sign of a zero gradient, nothing else)
+    split_equal = loss0 == split_loss and all(
+        torch.equal(a, b) for (_, a), (_, b) in zip(tree_leaves_with_path(ranks),
+                                                    tree_leaves_with_path(split)))
+    # (2) against the whole batch in one step: the loss and the parameter
+    # tree within DIST_TRAIN_TOL, each parameter within 2 lr (the first
+    # AdamW update lr g/(|g|+eps) takes an entry whose gradient is within
+    # rounding of 0 either way); the AdamW moments (m = (1-b1) g,
+    # v = (1-b2) g^2) are reported, with no bar: a gradient that sums
+    # contributions which nearly cancel moves when its sum is split
+    worst, worst_key, num, den, far = 0.0, None, 0.0, 0.0, 0.0
+    lr0 = float(m1["lr"])
+    for (path, a), (_, b) in zip(tree_leaves_with_path(ranks), tree_leaves_with_path(one)):
+        if path[0] == "opt" and path[1] in ("m", "v"):
+            rel = float((a.double() - b.double()).norm() / max(float(b.double().norm()), 1e-30))
+            if rel > worst:
+                worst, worst_key = rel, path
+        elif path[0] == "params":
+            num += float(((a.double() - b.double()) ** 2).sum())
+            den += float((b.double() ** 2).sum())
+            far = max(far, float((a - b).abs().max()))
+    params_rel = (num / den) ** 0.5
+    final1 = [ln for ln in outs["world1"][1].splitlines() if ln.startswith("final loss:")]
+    res.update({"split_equal": split_equal, "loss0_rel": loss_rel,
+                "moment_rel_l2_max": worst, "params_rel_l2": params_rel,
+                "param_abs_max": far, "lr0": lr0, "residuals": residuals,
+                "step_ms": {k: v["step_ms"] for k, v in runs_json.items()},
+                "agree": agree, "world1_final": final1})
+    if not all(agree.values()):
+        errors.append(f"12c: no 'replicas agree' line: {agree}")
+    if len(residuals) != DIST_RANKS or not all(r > 0 for r in residuals):
+        errors.append(f"12c: residuals {residuals}")
+    if not split_equal:
+        errors.append("12c: the ranks' first plain step differs from one process's step on "
+                      "the same two halves averaged in rank order")
+    if loss_rel > DIST_TRAIN_TOL or params_rel > DIST_TRAIN_TOL or far > 2 * lr0:
+        errors.append(f"12c: first plain step vs one process: loss rel {loss_rel}, params rel "
+                      f"L2 {params_rel}, largest param difference {far} (lr {lr0})")
+    if not final1:
+        errors.append(f"12c world1: no final loss line: {outs['world1'][1][-500:]}")
+    rule_msg = ("--data-shard builds a device mesh in this process; workers serve from their "
+                "own processes (shard inside a worker is not wired up)")
+    if outs["workers"][0] == 0 or rule_msg not in outs["workers"][2]:
+        errors.append(f"12d workers: exit {outs['workers'][0]}: {outs['workers'][2][-500:]}")
+    if torch.cuda.device_count() < DIST_RANKS:
+        if outs["shard"][0] == 0 or "needs that many devices" not in outs["shard"][2]:
+            errors.append(f"12d shard: exit {outs['shard'][0]}: {outs['shard'][2][-500:]}")
+    elif outs["shard"][0] != 0 or "data-mesh serving: slot batches split over" \
+            not in outs["shard"][1]:
+        errors.append(f"12d shard ({torch.cuda.device_count()} cards): exit "
+                      f"{outs['shard'][0]}: {outs['shard'][2][-500:]}")
+    del state, one, ranks
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    med = {k: sorted(v[1:])[len(v[1:]) // 2] if len(v) > 1 else v[0]
+           for k, v in res["step_ms"].items()}
+    res["median_step_ms"] = med
+    print(f"dist 12c: {PSUM_ARCH} full width and depth, fp32, batch {args.batch} x {args.seq}, "
+          f"through launch.train under torchrun on {DIST_RANKS} ranks sharing cuda:0 (gloo, "
+          f"reductions staged through the host): plain {agree['plain']}; compressed "
+          f"{agree['compressed']}, residual sums per rank {residuals}; step ms plain "
+          f"{[round(v, 1) for v in res['step_ms']['plain']]} compressed "
+          f"{[round(v, 1) for v in res['step_ms']['compressed']]} against one process's "
+          f"{one_ms:.1f} ms on the card alone")
+    print(f"dist 12c: first plain step equal to one process's step on the two ranks' halves "
+          f"averaged in rank order {split_equal}; against one step on the whole batch: loss "
+          f"rel {loss_rel:.3e}, parameters rel L2 {params_rel:.3e} (bars {DIST_TRAIN_TOL}), "
+          f"largest parameter difference {far:.3e} (bar 2 lr = {2 * lr0:.1e}), worst AdamW "
+          f"moment leaf rel L2 {worst:.3e} at {keystr(worst_key)}; "
+          f"--compress-grads at world size 1 (NCCL) rc {outs['world1'][0]}, "
+          f"{final1[-1] if final1 else 'no final loss'}")
+    print(f"dist 12d: --data-shard {DIST_RANKS} on a one-card machine rc {outs['shard'][0]} "
+          f"({(outs['shard'][2].strip().splitlines() or [''])[-1][:100]}); --workers 2 "
+          f"--data-shard {DIST_RANKS} rc {outs['workers'][0]} (workers-vs-data-shard); "
+          f"{res['seconds']:.1f} s")
+    return res
+
+
+def check_distribution(torch, cfgs, solo, solo_ms, errors):
+    """Phase 12: 12a per config, 12b, then 12c with 12d."""
+    t12 = time.perf_counter()
+    from repro_torch.models.vgg9 import init_vgg9
+    out = {"serve": {name: check_sharded_serving(
+        torch, name, cfg, init_vgg9(torch.Generator().manual_seed(0), cfg, "cpu"),
+        solo[name], solo_ms[name], errors) for name, cfg in cfgs.items()}}
+    out["seconds_a"] = time.perf_counter() - t12
+    out["psum"] = check_compressed_psum(torch, errors)
+    out["train"] = check_dist_training(torch, errors)
+    out["seconds"] = time.perf_counter() - t12
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -2876,6 +3328,23 @@ def main() -> None:
             fail(f"spike_matmul differs from the k-ascending sum at {failed}")
         print("sweep: every spike-matmul geometry bit-identical to the k-ascending sum; "
               "every int4 geometry within its bar of the plain version")
+        return
+    if "--phase12" in sys.argv[1:]:
+        errors = []
+        cfgs = {"CIFAR10": vgg9_snn.CIFAR10, "CIFAR10_INT4": vgg9_snn.CIFAR10_INT4}
+        solo, solo_ms = {}, {}
+        for name, scfg in cfgs.items():
+            params = {k: {kk: v.to("cuda") for kk, v in leaf.items()} for k, leaf in
+                      init_vgg9(torch.Generator().manual_seed(0), scfg, "cpu").items()}
+            imgs = make_requests(torch, scfg)
+            serve(torch, scfg, params, imgs[:SLOTS], "cuda")
+            core, solo[name], seconds = serve(torch, scfg, params, imgs, "cuda")
+            solo_ms[name] = seconds / core.stats()["steps_run"] * 1e3
+        distribution = check_distribution(torch, cfgs, solo, solo_ms, errors)
+        print(f"phase 12 distribution: {len(errors)} errors in "
+              f"{distribution['seconds']:.1f} s")
+        if errors:
+            fail("; ".join(errors))
         return
 
     # 3. kernels
@@ -3048,7 +3517,7 @@ def main() -> None:
     # 10. the serving fleet
     t10 = time.perf_counter()
     solo = served["CIFAR10"].pop("results")
-    served["CIFAR10_INT4"].pop("results")
+    solo_int4 = served["CIFAR10_INT4"].pop("results")
     fleet = {"inproc": check_fleet_inproc(
         torch, cfg, init_vgg9(torch.Generator().manual_seed(0), cfg, "cpu"), solo, errors)}
     fleet["seconds_a"] = time.perf_counter() - t10
@@ -3082,6 +3551,19 @@ def main() -> None:
     if errors:
         fail("; ".join(errors))
 
+    # 12. distribution
+    torch.cuda.empty_cache()
+    distribution = check_distribution(
+        torch, {"CIFAR10": cfg, "CIFAR10_INT4": vgg9_snn.CIFAR10_INT4},
+        {"CIFAR10": solo, "CIFAR10_INT4": solo_int4},
+        {k: v["ms_per_step"] for k, v in served.items()}, errors)
+    print(f"phase 12 distribution: {len(errors)} errors in {distribution['seconds']:.1f} s "
+          f"(12a {distribution['seconds_a']:.1f}, 12b {distribution['psum']['seconds']:.1f}, "
+          f"12c+d {distribution['train']['seconds']:.1f}) [{smi_line}; every shard and rank "
+          f"on one card]")
+    if errors:
+        fail("; ".join(errors))
+
     csrc = "src/repro_torch/kernels/{}/csrc/{}.cu"
     sources = {"spike_matmul_mapped": csrc.format("spike_conv", "spike_matmul_mapped"),
                "lif_epilogue_scan": csrc.format("lif_step", "lif_epilogue_scan"),
@@ -3098,11 +3580,13 @@ def main() -> None:
                 "int4_matmul": "src/repro/kernels/int4_matmul/int4_matmul.py:47",
                 "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:71"}
     # launches of each kernel in the runs of its own main paths: serving
-    # (phase 4), adaptive-precision serving (phase 8a) and the in-process
-    # fleet (phase 10a) for the fused pipeline's kernels, the unfused
-    # pipeline (phase 5) for the two it alone runs
+    # (phase 4), adaptive-precision serving (phase 8a), the in-process
+    # fleet (phase 10a) and sharded serving (phase 12a) for the fused
+    # pipeline's kernels, the unfused pipeline (phase 5) for the two it
+    # alone runs
     main_runs = {k: [v["launches"] for v in served.values()]
                  + [precision["modes"]["adaptive"]["launches"], fleet["inproc"]["launches"]]
+                 + [v["launches"] for v in distribution["serve"].values()]
                  for k in ("spike_matmul_mapped", "lif_epilogue_scan", "dense_conv_lif")}
     main_runs.update({k: [v["launches"] for v in unfused.values()]
                       for k in ("spike_matmul", "lif_step")})
@@ -3138,14 +3622,14 @@ def main() -> None:
                    "launch_floor_ms": floor_ms,
                    "serve": served, "unfused": unfused, "train": trained, "lm": lm,
                    "precision": precision, "family": family, "fleet": fleet,
-                   "lm_train": lm_train}, f,
+                   "lm_train": lm_train, "distribution": distribution}, f,
                   indent=1,
                   default=str)
     if any(math.isnan(k["ms"]) for k in kernels):
         fail("a kernel time is NaN")
     if any(k["launches"] == 0 for k in kernels):
         fail(f"a kernel was not launched on its main path: {kernels}")
-    print(f"phases 1-11 in {time.perf_counter() - t_start:.1f} s")
+    print(f"phases 1-12 in {time.perf_counter() - t_start:.1f} s")
     print(smi_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -3153,4 +3637,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--train-rank"]:
+        train_rank(sys.argv[2], sys.argv[3:])
+    else:
+        main()

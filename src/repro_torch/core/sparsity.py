@@ -2,8 +2,8 @@
 
 Spike counts per layer drive (a) the quantization-sparsity study, (b) the
 workload model used for core allocation, and (c) the energy model. A forward
-pass can gather them in a `SpikeStats`; the reduction across data-parallel
-replicas (`cross_replica_sum` in the JAX package) arrives with distribution.
+pass can gather them in a `SpikeStats`, and `SpikeStats.cross_replica_sum`
+adds them up across the ranks of a data-parallel process group.
 """
 from __future__ import annotations
 
@@ -40,6 +40,21 @@ class SpikeStats:
 
     def layer_sparsity(self) -> Dict[str, torch.Tensor]:
         return {k: 1.0 - self.counts[k] / self.sizes[k] for k in self.counts}
+
+    def cross_replica_sum(self, group=None) -> "SpikeStats":
+        """Every field summed over ``group``'s ranks (``all_reduce(SUM)``;
+        None: the default group), as the reference's ``psum`` over its data
+        axes. Counts are whole numbers, so the float32 sums are exact below
+        2**24 spikes per layer. This rank's stats are left as they were."""
+        import torch.distributed as dist
+
+        def summed(tree):
+            out = {}
+            for k in sorted(tree):
+                out[k] = tree[k].clone()
+                dist.all_reduce(out[k], op=dist.ReduceOp.SUM, group=group)
+            return out
+        return SpikeStats(summed(self.counts), summed(self.sizes))
 
 
 def tile_occupancy(spikes: torch.Tensor, tile: int = 128) -> torch.Tensor:

@@ -8,10 +8,12 @@ needed.
 
 A small background thread prefetches: it makes the next batches (in page-
 locked memory when they go to the card) while the device computes, and the
-consumer copies each onto ``device`` with ``non_blocking=True``. The
-reference's mesh placement (``mesh`` / ``batch_spec``) arrives with
-distribution; here ``device`` names the one target, and without one a batch
-stays where ``make_batch`` put it.
+consumer copies each onto ``device`` with ``non_blocking=True``. Here
+``device`` names the one target, and without one a batch stays where
+``make_batch`` put it. Data-parallel training needs no placement: every
+rank makes the same global batch and its train step keeps its own rows
+(`train.train_step`). The reference's placement onto a mesh (``mesh`` /
+``batch_spec``) waits for the tensor-parallel slice (ROADMAP, queue 1).
 """
 from __future__ import annotations
 

@@ -32,6 +32,10 @@
     # each) supervised over the versioned wire protocol:
     PYTHONPATH=src python -m repro_torch.launch.serve --workload snn --workers 2
 
+    # data-mesh serving: each slot batch split over 2 shards (on the CPU
+    # both live on the host; on the card, shard d is card d):
+    PYTHONPATH=src python -m repro_torch.launch.serve --workload snn --device cpu --data-shard 2
+
 Runs on the card unless ``--device cpu`` is given; asking for the card
 without one raises. The LM is cut to ``--d-model`` / ``--n-layers`` /
 ``--vocab`` as the JAX package's CLI cuts it (0 keeps the architecture's
@@ -39,13 +43,17 @@ own; archs with more than 8 experts keep 8 at top-k <= 2, frontends are
 dropped). ``--speculate`` on an arch with recurrent or ring-buffer state
 (recurrentgemma-2b, xlstm-125m) is refused with the reference's
 AssertionError. ``--workers N`` serves through N worker subprocesses on the
-same device, each building its runner from the same seeded spec. The
-data-shard flag of that CLI (`NOT_PORTED`) is not ported yet and exits
-with a message saying so.
+same device, each building its runner from the same seeded spec.
+``--data-shard N`` serves the SNN through an in-process data mesh
+(`launch.mesh.make_data_mesh`): N host shards on the CPU, the first N cards
+on the card, and it exits with the reference's "needs that many devices"
+message when fewer cards are visible; the LM ignores it, as the
+reference's CLI does.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import sys
@@ -55,18 +63,15 @@ import torch
 
 from ..configs import get_arch, vgg9_snn
 from ..device import resolve_device
+from ..dist.context import compute_mesh
 from ..models import transformer as tf
 from ..models.vgg9 import init_vgg9
 from ..serve.api import EngineConfig, Request, StepBudget
 from ..serve.core import EngineCore
 from ..serve.runners.lm import LMRunner
 from ..serve.runners.snn import SNNRunner
+from .mesh import make_data_mesh
 from .train import reduce_cfg
-
-#: flags of the JAX CLI that this port does not serve yet: (flag, test)
-NOT_PORTED = (
-    ("--data-shard", lambda a: a.data_shard > 1),
-)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,8 +89,7 @@ def _sampling(a) -> bool:
     return a.temperature > 0 or a.top_k > 0 or a.top_p < 1.0
 
 
-#: the JAX CLI's rules whose flags are all ported, with its names and
-#: messages; its rule on --data-shard joins when that flag does
+#: the JAX CLI's rules, with its names and messages
 FLAG_RULES = (
     FlagRule("replicas-range", lambda a: a.replicas < 1,
              "--replicas must be >= 1"),
@@ -139,6 +143,11 @@ FLAG_RULES = (
              "--slo-ms deadlines are stamped on each worker's own wall "
              "clock at submit; cross-process SLO accounting is not "
              "supported (drop one of the two)"),
+    FlagRule("workers-vs-data-shard",
+             lambda a: a.workers > 0 and a.data_shard > 1,
+             "--data-shard builds a device mesh in this process; workers "
+             "serve from their own processes (shard inside a worker is "
+             "not wired up)"),
 )
 
 
@@ -218,8 +227,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          "versioned wire protocol; a killed worker's "
                          "in-flight requests replay elsewhere "
                          "bit-identically). 0 serves in-process")
-    # a flag of the JAX CLI, accepted so that it can be refused clearly
-    ap.add_argument("--data-shard", type=int, default=0, help="not ported yet")
+    ap.add_argument("--data-shard", type=int, default=0,
+                    help="SNN: split slot batches over this many devices "
+                         "(an in-process ('data',) mesh; on the card, needs "
+                         "that many cards)")
     return ap.parse_args(argv)
 
 
@@ -400,6 +411,12 @@ def serve_lm(args) -> None:
         core.close()
 
 
+def snn_images(cfg, n: int, seed: int) -> List[torch.Tensor]:
+    """The CLI's ``n`` request images, uniform in [0, 1) from ``seed + 1``."""
+    gen = torch.Generator().manual_seed(seed + 1)
+    return [torch.rand((cfg.img_hw, cfg.img_hw, cfg.in_ch), generator=gen) for _ in range(n)]
+
+
 def serve_snn(args) -> None:
     device = resolve_device(args.device)
     cfg = vgg9_snn.TINY_INT4 if args.int4 else vgg9_snn.TINY
@@ -422,11 +439,18 @@ def serve_snn(args) -> None:
         else:
             core = build_engine(SNNRunner(cfg, params, device=device), args)
 
-    gen = torch.Generator().manual_seed(args.seed + 1)
-    shape = (cfg.img_hw, cfg.img_hw, cfg.in_ch)
+    if args.data_shard > 1:
+        try:
+            mesh = make_data_mesh(args.data_shard, device)
+        except ValueError as exc:
+            sys.exit(f"--data-shard {args.data_shard}: {exc}")
+        mesh_ctx = compute_mesh(mesh)
+        print(f"data-mesh serving: slot batches split over {args.data_shard} devices")
+    else:
+        mesh_ctx = contextlib.nullcontext()
+
     ids = []
-    for i in range(args.requests):
-        img = torch.rand(shape, generator=gen)
+    for i, img in enumerate(snn_images(cfg, args.requests, args.seed)):
         opts = {}
         if args.precision and i % 3 == 0:
             # exercise the never-switch invariant from the CLI: every third
@@ -438,7 +462,8 @@ def serve_snn(args) -> None:
             ids.append(core.submit(img * 0.02, source="sparse", **opts))
         else:
             ids.append(core.submit(img, source="dense", **opts))
-    results = core.run_until_complete()
+    with mesh_ctx:
+        results = core.run_until_complete()
     for rid in ids:
         res = results[rid]
         if res.outputs is None:                 # failed or shed by the fleet
@@ -465,10 +490,6 @@ def serve_snn(args) -> None:
 
 def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
-    refused = [flag for flag, used in NOT_PORTED if used(args)]
-    if refused:
-        sys.exit(f"not ported yet: {', '.join(refused)} (the PyTorch port "
-                 "serves on one device, not over a data mesh)")
     for rule in check_flags(args):
         sys.exit(rule.error)
     if args.workload == "snn":

@@ -1,10 +1,14 @@
-"""LM training launcher for the port: the JAX package's launch/train.py on one device.
+"""LM training launcher for the port: the JAX package's launch/train.py.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m --steps 50 \\
         --d-model 64 --n-layers 4 --vocab 512 --seq 128 --batch 8
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 5
     # an arch at its full config (bf16, remat="full"; the card):
     PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m --full-size
+
+    # data-parallel over 2 ranks, with error-feedback int8 gradient compression:
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+        --device cpu --steps 10 --compress-grads
 
 Trains any registered arch on synthetic token streams
 (`data.synthetic.token_batch`, with synthesized frontend embeddings where
@@ -14,9 +18,20 @@ schedule (10 warmup steps) and `models.transformer.train_loss`, through
 ``--ckpt-dir``, resuming from the newest one there). Without
 ``--full-size`` the arch is cut by `reduce_cfg` (float32, no remat, the
 flags' width, depth and vocab). Runs on the card unless ``--device cpu`` is
-given; asking for the card without one raises. The gradient-compression
-flags (``--compress-grads``) need a data mesh, which arrives with
-distribution: they exit with a message saying so.
+given; asking for the card without one raises.
+
+Data parallelism (`launch.mesh.make_host_mesh`): started by ``torchrun``
+(``python -m torch.distributed.run``), every rank joins the process group
+from its environment; started plainly, the run is a group of one. Every
+rank draws the same global batch from (seed, step) and the step keeps its
+own rows (``--batch`` must divide by the world size). Without
+``--compress-grads`` the step is the plain data-parallel one (gradients and
+loss averaged in fp32 over the ranks); with it, the error-feedback int8
+reduction (`train_step.shard_map_compressed_step`), whose residuals the
+checkpoints hold in the reference's stacked ``[n_data, ...]`` layout. Rank
+0 prints and writes the checkpoints. On the card, ranks that share a card
+reduce over gloo (NCCL refuses two ranks on one GPU); a run of one rank per
+card uses NCCL.
 """
 from __future__ import annotations
 
@@ -30,12 +45,16 @@ import torch
 from ..configs import get_arch
 from ..data.synthetic import _generator, token_batch
 from ..device import resolve_device
+from ..dist.context import compute_mesh
 from ..models import transformer as tf
 from ..models.frontends import synth_frontend
 from ..train.loop import TrainLoop
 from ..train.optim import make_optimizer
 from ..train.schedule import warmup_cosine
-from ..train.train_step import init_train_state, make_train_step
+from ..train.train_step import (init_train_state, make_train_step,
+                                shard_map_compressed_step, stack_error_state)
+from ..train.tree import tree_leaves
+from .mesh import make_host_mesh
 
 
 def reduce_cfg(cfg, args):
@@ -98,10 +117,11 @@ def parse_args(argv: Optional[List[str]] = None):
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where training runs (default: the card)")
     ap.add_argument("--compress-grads", action="store_true",
-                    help="not ported yet: error-feedback int8 gradient "
-                         "all-reduce over the data axis (arrives with distribution)")
+                    help="error-feedback int8 gradient all-reduce over the data "
+                         "axis (dist.compression; shard_map_compressed_step)")
     ap.add_argument("--compress-per-channel", action="store_true",
-                    help="with --compress-grads: per-channel quantization scales")
+                    help="with --compress-grads: per-channel (last-axis) "
+                         "quantization scales instead of one per-tensor scale")
     args = ap.parse_args(argv)
     if args.compress_per_channel and not args.compress_grads:
         ap.error("--compress-per-channel requires --compress-grads")
@@ -111,27 +131,59 @@ def parse_args(argv: Optional[List[str]] = None):
 def main(argv: Optional[List[str]] = None) -> list:
     """Train; returns the loop's history [(step, metrics)]."""
     args = parse_args(argv)
-    if args.compress_grads:
-        sys.exit("not ported yet: --compress-grads (the PyTorch port trains on one "
-                 "device; the data mesh arrives with distribution)")
-    dev = resolve_device(args.device)
+    resolve_device(args.device)
+    mesh = make_host_mesh(args.device)
+    try:
+        with compute_mesh(mesh):
+            return _train(args, mesh)
+    finally:
+        mesh.close()
+
+
+def _train(args, mesh) -> list:
+    dev, n_data, rank = mesh.device, int(mesh.shape["data"]), mesh.rank
+    if args.batch % n_data:
+        sys.exit(f"--batch {args.batch} must divide by the world size ({n_data})")
+    say = print if rank == 0 else (lambda *a, **k: None)
+    if n_data > 1:
+        say(f"data-parallel training: {n_data} ranks, {mesh.backend} on {dev.type}"
+            + (" (ranks share a card: gloo stages every reduction through the host)"
+               if dev.type == "cuda" and mesh.backend == "gloo" else ""))
     cfg = get_arch(args.arch)
     if not args.full_size:
         cfg = reduce_cfg(cfg, args)
 
     opt = make_optimizer(cfg.optimizer)
     lr_fn = warmup_cosine(args.lr, 10, args.steps)
-    step = make_train_step(functools.partial(tf.train_loss, cfg=cfg), opt, lr_fn)
+    loss_fn = functools.partial(tf.train_loss, cfg=cfg)
+    if args.compress_grads:
+        step = shard_map_compressed_step(
+            make_train_step(loss_fn, opt, lr_fn, compress_axis="data",
+                            compress_per_channel=args.compress_per_channel), mesh)
+    else:
+        step = make_train_step(loss_fn, opt, lr_fn)
     params = tf.init_params(torch.Generator(device=dev).manual_seed(args.seed), cfg, dev)
-    state = init_train_state(params, opt)
+    state = init_train_state(params, opt, compress=args.compress_grads)
+    if args.compress_grads:
+        state = stack_error_state(state, n_data)
     loop = TrainLoop(step, make_batch_fn(cfg, args.seed, args.batch, args.seq, dev),
-                     ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every, log_every=5)
+                     ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every, log_every=5,
+                     log_fn=lambda i, m: say(f"step {i}: " + " ".join(
+                         f"{k}={v:.4g}" for k, v in m.items())))
     restored, start = loop.maybe_restore(state)
     if restored is not None:
         state = restored
-        print(f"resumed from step {start}")
-    loop.run(state, args.steps, start_step=start)
-    print("final loss:", float(loop.history[-1][1]["loss"]))
+        say(f"resumed from step {start}")
+    state = loop.run(state, args.steps, start_step=start)
+    if n_data > 1:
+        say(f"replicas agree: parameter and optimizer fingerprints equal on all {n_data} "
+            f"ranks after each of {loop.replica_checks} steps, every bit after the last")
+    if args.compress_grads:
+        err = sum(float(e.abs().sum()) for e in tree_leaves(state["grad_err"]))
+        # one write of the whole line: every rank prints it to one stream
+        sys.stdout.write(f"rank {rank}: residual |grad_err| sum {err:.6g}\n")
+        sys.stdout.flush()
+    say("final loss:", float(loop.history[-1][1]["loss"]))
     return loop.history
 
 

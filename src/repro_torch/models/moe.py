@@ -26,10 +26,16 @@ backwards of its gathers accumulate with ``index_put_(accumulate=True)``,
 which sorts its indices on the card: deterministic under the train step's
 settings, so two card steps from one state agree bit for bit too.
 
-The reference's mesh branch (shard_map over the data-parallel axes, the
-FSDP gather of ``fsdp_experts``) runs only under a device mesh; the port
-has none (ROADMAP, queue 1: distribution), so ``fsdp_experts`` is accepted and
-ignored, as JAX ignores it without a mesh.
+Under an ambient in-process data mesh (`launch.mesh.DataMesh`) whose
+``'data'`` (x ``'pod'``) size ndp divides the batch, each of the ndp row
+blocks of ``x`` is routed on its own, as the reference's ``shard_map`` over
+the data axes routes each shard's rows: capacity comes from the *local*
+row count, so which tokens drop depends on the block. The aux loss is the
+mean of the blocks' (the reference's ``pmean``). The blocks run on ``x``'s
+device: in JAX only the MoE is under ``shard_map``. ``fsdp_experts`` is a
+layout (the reference's per-layer gather of 'data'-sharded expert stacks)
+and changes no number; laying experts out over the mesh waits for the
+tensor-parallel slice, so it is accepted and changes nothing here.
 """
 from __future__ import annotations
 
@@ -40,6 +46,8 @@ import torch.nn.functional as F
 
 from ..core.tiling import round_up
 from ..device import resolve_device
+from ..dist.context import current_mesh
+from ..launch.mesh import DataMesh
 from .layers import _gelu, dense_init, mlp_apply, mlp_init
 
 NEG_INF = -1e30
@@ -64,11 +72,33 @@ def moe_init(gen: torch.Generator, d: int, n_experts: int, d_ff_e: int, act: str
 def moe_apply(p: Dict, x: torch.Tensor, *, top_k: int, act: str, n_experts: int,
               capacity_factor: float = 1.25, n_experts_padded: int = 0,
               fsdp_experts: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: [B, S, d] -> (y [B, S, d], aux_loss scalar). ``fsdp_experts``
-    steers the reference's mesh layout and changes nothing here."""
-    return _moe_core(p, x, top_k=top_k, act=act,
-                     n_experts=max(n_experts_padded, n_experts), n_valid=n_experts,
-                     capacity_factor=capacity_factor)
+    """x: [B, S, d] -> (y [B, S, d], aux_loss scalar). Under an in-process
+    data mesh the rows are routed block by block (module docstring).
+    ``fsdp_experts`` steers the reference's mesh layout and changes nothing
+    here."""
+    kw = dict(top_k=top_k, act=act, n_experts=max(n_experts_padded, n_experts),
+              n_valid=n_experts, capacity_factor=capacity_factor)
+    ndp = _data_blocks(x.shape[0])
+    if ndp > 1:
+        outs = [_moe_core(p, xb, **kw) for xb in x.chunk(ndp)]
+        aux = outs[0][1]
+        for _, a in outs[1:]:
+            aux = aux + a
+        return torch.cat([y for y, _ in outs]), aux / ndp
+    return _moe_core(p, x, **kw)
+
+
+def _data_blocks(batch: int) -> int:
+    """ndp, the ambient in-process mesh's data-parallel size, where it
+    divides ``batch``; else 1."""
+    mesh = current_mesh()
+    if not isinstance(mesh, DataMesh):
+        return 1
+    ndp = 1
+    for a in ("pod", "data"):
+        if a in mesh.axis_names:
+            ndp *= int(mesh.shape[a])
+    return ndp if batch % ndp == 0 and batch >= ndp else 1
 
 
 def _top_k(logits: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -17,9 +17,12 @@ Block kinds:
 
 The vision/audio frontends are stubs: ``batch["frontend_embeds"]`` is
 projected by ``embed.w_front`` and prepended to the token embeddings
-(`models.frontends`). Without a device mesh the JAX package's sharding
-hooks (`_vocab_shard`, `_seq_shard`, `shard_cotangents`) are identities,
-so the port has none (ROADMAP, queue 1: distribution).
+(`models.frontends`). The JAX package's sharding hooks (`_vocab_shard`,
+`_seq_shard`, `shard_cotangents`) lay tensors out over a ``'model'`` axis
+and change no number; they wait for the tensor-parallel slice (ROADMAP,
+queue 1). Data parallelism needs none of them: the MoE routes each data
+shard's rows on its own under an in-process data mesh (`models.moe`), and
+the train step reduces over a process group (`train.train_step`).
 
 Training: `train_loss` (next-token CE + the MoE aux loss), through
 `forward`, which checkpoints each period when ``cfg.remat == "full"``.

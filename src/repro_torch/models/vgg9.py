@@ -319,6 +319,58 @@ def vgg9_infer_hybrid(params: Dict, images, cfg: VGG9Config, *, device="cuda",
     return logits, counts
 
 
+def vgg9_infer_hybrid_sharded(params: Dict, images, cfg: VGG9Config, *, mesh,
+                              axis: str = "data", plan=None, return_stats: bool = False):
+    """`vgg9_infer_hybrid` split over an in-process data mesh
+    (`launch.mesh.DataMesh`) -> (logits, counts[, stats]).
+
+    Every layer is row-independent over the batch, so the batch shards
+    contiguously: shard ``d`` serves images ``[d*B/n, (d+1)*B/n)`` on
+    ``mesh.devices[d]`` (the parameters copied there once, by
+    ``mesh.replicate``) with a plan sized to ``B/n`` slots. The shards run
+    one after the other from this thread; results are gathered on the first
+    shard's device. Logits equal the unsharded call's bit for bit: a row's
+    sums do not depend on how many rows share the launch.
+
+    The stat layout is the reference's, so per-shard counters stay
+    attributable (`serve.runners.snn` is the consumer):
+
+    * ``counts``  — per-layer ``[n]`` vectors (sum for the global count);
+    * ``*_per_image`` stats — global ``[B]`` vectors (shard-concatenated);
+    * every other stat leaf (``occ_map``, ``row_occ``, ``skip_rate``,
+      ``block_m``, ``rows``, tile counts) — stacked with a leading ``[n]``
+      shard axis; ``row_occ[d]`` rows are in shard ``d``'s folded order.
+
+    Args:
+        mesh: an in-process mesh whose ``axis`` divides the batch.
+        plan: optional `HybridPlan` sized to the *local* batch ``B/n``.
+    """
+    from ..core.hybrid import plan_vgg9_inference
+
+    ndev = int(mesh.shape[axis])
+    b = images.shape[0]
+    if b % ndev:
+        raise ValueError(f"batch {b} must divide the '{axis}' axis ({ndev})")
+    b_local = b // ndev
+    if plan is None:
+        plan = plan_vgg9_inference(cfg, b_local)
+    images = torch.as_tensor(images, dtype=torch.float32)
+    outs = []
+    for d, dev in enumerate(mesh.devices):
+        outs.append(vgg9_infer_hybrid(
+            mesh.replicate(params, dev), images[d * b_local:(d + 1) * b_local].to(dev), cfg,
+            device=dev, plan=plan, return_stats=True))
+    home = mesh.devices[0]
+    logits = torch.cat([o[0].to(home) for o in outs])
+    counts = {k: torch.stack([o[1][k].to(home) for o in outs]) for k in outs[0][1]}
+    if not return_stats:
+        return logits, counts
+    stats = {name: {k: (torch.cat if k.endswith("_per_image") else torch.stack)(
+        [o[2][name][k].to(home) for o in outs]) for k in st}
+        for name, st in outs[0][2].items()}
+    return logits, counts, stats
+
+
 def vgg9_infer_hybrid_unfused(params: Dict, images, cfg: VGG9Config, *,
                               device="cuda") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The pre-fusion pipeline -> (logits, counts): per spiking layer, T

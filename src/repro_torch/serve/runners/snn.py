@@ -20,6 +20,15 @@ out per request:
 
 Every stat crosses back to the host as numpy (``.cpu().numpy()``), so
 results are device-independent and `serve.core.all_finite` reads them.
+
+Data-mesh sharding: under an ambient in-process data mesh
+(`launch.mesh.DataMesh`, installed with ``dist.context.compute_mesh``)
+whose ``'data'`` axis divides the slot count, `run` switches to
+`vgg9_infer_hybrid_sharded`: the slot batch split over the mesh's shards,
+weights replicated, and the per-shard occupancy counters re-assembled so
+that every per-request stat (logits, skip rate, spike counts, energy) is
+the unsharded run's. `EngineCore` needs no change. A process-group mesh
+(training's) is not a serving mesh and is ignored.
 """
 from __future__ import annotations
 
@@ -32,7 +41,10 @@ from ...core.energy import analytical_energy_per_image, energy_per_image
 from ...core.hybrid import HybridPlan, plan_vgg9_inference
 from ...core.workload import conv_workload, dense_input_workload, fc_workload
 from ...device import resolve_device
-from ...models.vgg9 import VGG9Config, conv_names, vgg9_infer_hybrid
+from ...dist.context import current_mesh
+from ...launch.mesh import DataMesh
+from ...models.vgg9 import (VGG9Config, conv_names, vgg9_infer_hybrid,
+                            vgg9_infer_hybrid_sharded)
 from ..api import (PAD_REQUEST_ID, Request, Result, SlotProgress, StepBudget,
                    StepReport)
 
@@ -40,6 +52,14 @@ from ..api import (PAD_REQUEST_ID, Request, Result, SlotProgress, StepBudget,
 def _host(t: torch.Tensor, dtype=None) -> np.ndarray:
     out = t.detach().cpu().numpy()
     return out if dtype is None else out.astype(dtype)
+
+
+def _spikes_per_image(stats) -> tuple:
+    """Per-layer output and input spike counts per image, as float64 [B]."""
+    out_spikes = {k: _host(v["out_spikes_per_image"], np.float64) for k, v in stats.items()}
+    in_spikes = {k: _host(v["in_spikes_per_image"], np.float64)
+                 for k, v in stats.items() if "in_spikes_per_image" in v}
+    return out_spikes, in_spikes
 
 
 def _per_request_skip(row_occ: np.ndarray, block_m: int, rows: int,
@@ -119,10 +139,7 @@ class SNNRunner:
             return_stats=True)
         batch_skip = {k: float(v["skip_rate"]) for k, v in stats.items()
                       if "skip_rate" in v}
-        out_spikes = {k: _host(v["out_spikes_per_image"], np.float64)
-                      for k, v in stats.items()}
-        in_spikes = {k: _host(v["in_spikes_per_image"], np.float64)
-                     for k, v in stats.items() if "in_spikes_per_image" in v}
+        out_spikes, in_spikes = _spikes_per_image(stats)
 
         per_req_skip: Dict[str, np.ndarray] = {}
         ts_occ: Dict[str, np.ndarray] = {}
@@ -140,14 +157,71 @@ class SNNRunner:
         return (_host(logits), batch_skip, out_spikes, in_spikes,
                 per_req_skip, ts_occ)
 
+    def _data_shards(self, n: int) -> int:
+        """How many ways to split a slot batch: the ambient in-process
+        mesh's 'data' axis size when it divides the batch, else 1."""
+        mesh = current_mesh()
+        if not isinstance(mesh, DataMesh):
+            return 1
+        ndev = int(mesh.shape["data"])
+        return ndev if ndev > 1 and n % ndev == 0 else 1
+
+    def _run_sharded(self, images: torch.Tensor, n: int, ndev: int):
+        """Split the slot batch over the data mesh (`vgg9_infer_hybrid_sharded`)
+        and re-assemble per-request counters from the per-shard stats.
+
+        Per-image spike vectors come back shard-concatenated (already
+        global); occupancy maps come back stacked per shard, so per-request
+        skip rates and occupancy traces are computed shard by shard — shard
+        ``d`` owns requests ``[d*n/ndev, (d+1)*n/ndev)`` — into the global
+        vectors. They equal the unsharded run's: rows_per_slice and the
+        sparse M tile do not depend on the batch size, so re-tiling a
+        request's own rows gives the same served-alone skip rate."""
+        b_local = n // ndev
+        plan = self.plan(b_local)
+        logits, _, stats = vgg9_infer_hybrid_sharded(
+            self.params, images, self.cfg, mesh=current_mesh(), plan=plan,
+            return_stats=True)
+        batch_skip = {k: float(_host(v["skip_rate"]).mean()) for k, v in stats.items()
+                      if "skip_rate" in v}
+        out_spikes, in_spikes = _spikes_per_image(stats)
+
+        per_req_skip: Dict[str, np.ndarray] = {}
+        ts_occ: Dict[str, np.ndarray] = {}
+        t = self.cfg.timesteps
+        for name, st in stats.items():
+            if "occ_map" not in st:
+                continue
+            rps = plan.layer(name).kernel.m // (t * b_local)
+            row_occ, rows, block_m = _host(st["row_occ"]), _host(st["rows"]), _host(st["block_m"])
+            skip = np.zeros(n)
+            occ_t = np.zeros((t, n))
+            for d in range(ndev):
+                sl = slice(d * b_local, (d + 1) * b_local)
+                skip[sl] = _per_request_skip(row_occ[d], int(block_m[d]), int(rows[d]),
+                                             rows_per_slice=rps, batch=b_local)
+                occ_t[:, sl] = _per_timestep_occupancy(row_occ[d], int(rows[d]),
+                                                       rows_per_slice=rps, batch=b_local)
+            per_req_skip[name] = skip
+            ts_occ[name] = occ_t
+        return (_host(logits), batch_skip, out_spikes, in_spikes,
+                per_req_skip, ts_occ)
+
     def run(self, batch: Sequence[Request]) -> List[Result]:
         images = torch.stack([torch.as_tensor(r.payload, dtype=torch.float32,
                                               device=self.device)
                               for r in batch])
         n = len(batch)
-        logits, batch_skip, out_spikes, in_spikes, per_req_skip, ts_occ = \
-            self._run(images, n)
+        ndev = self._data_shards(n)
+        if ndev > 1:
+            logits, batch_skip, out_spikes, in_spikes, per_req_skip, ts_occ = \
+                self._run_sharded(images, n, ndev)
+        else:
+            logits, batch_skip, out_spikes, in_spikes, per_req_skip, ts_occ = \
+                self._run(images, n)
 
+        # energy is priced with the full-slot plan in both modes, so that a
+        # request's Eq. 3 estimate does not change with the shard count
         plan = self.plan(n)
         energies = [self._energy_estimate(plan, {k: v[i] for k, v in in_spikes.items()})
                     for i in range(n)]

@@ -7,8 +7,9 @@ No external deps — each optimizer is (init, update):
 
 Every update is written in the reference's order of operations, so a step
 rounds as the JAX package's does (``torch.optim.AdamW`` orders its update
-differently). The ZeRO-1 sharding of optimizer state (``zero1_spec``)
-arrives with distribution.
+differently). ``zero1_spec`` is the ZeRO-1 rule for one optimizer leaf
+(``dist.sharding.zero1_opt_specs`` is its tree form); placing state by it
+waits for the tensor-parallel slice.
 """
 from __future__ import annotations
 
@@ -146,3 +147,25 @@ def adafactor(decay: float = 0.8, eps: float = 1e-30, clip_thresh: float = 1.0,
 
 def make_optimizer(name: str, **kw) -> Optimizer:
     return {"sgd": sgd, "adamw": adamw, "adafactor": adafactor}[name](**kw)
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1 sharding of optimizer state
+# ---------------------------------------------------------------------------
+
+def zero1_spec(param_spec, shape, data_axis: str = "data", data_size: int = 2):
+    """Add ``data_axis`` to the first axis that is unsharded & divisible.
+
+    param_spec: the parameter's `dist.sharding.PartitionSpec` (any
+    sequence of entries). data_size: the data axis size to check
+    divisibility against. Returns the spec for fp32 optimizer moments of the
+    same shape.
+    """
+    from ..dist.sharding import PartitionSpec as P
+    entries = list(param_spec) + [None] * (len(shape) - len(param_spec))
+    if data_size > 1:
+        for i, (e, dim) in enumerate(zip(entries, shape)):
+            if e is None and dim % data_size == 0:
+                entries[i] = data_axis
+                return P(*entries)
+    return P(*entries)

@@ -1,13 +1,27 @@
 """Train-step builder: loss -> grads -> clip -> schedule -> optimizer update.
 
 Features: microbatch gradient accumulation, global-norm clipping, pluggable
-optimizer and schedule. Gradients come from autograd through the surrogate
-spike and the QAT straight-through estimator. What the JAX package adds for
-distribution (gradient shardings, gradient dtype casts before the
-all-reduce, error-feedback int8 compression) arrives with distribution:
-asking for it raises `NotImplementedError`.
+optimizer and schedule, a gradient dtype cast before the reduction, and
+data parallelism over a ``torch.distributed`` process group
+(`launch.mesh.ProcessMesh`), in two forms:
 
-Gradients are taken under `deterministic`: the same state and batch give
+* plain: under an ambient process-group mesh (``compute_mesh``) whose
+  ``'data'`` axis has n > 1 ranks, the step takes the *global* batch, keeps
+  this rank's rows, and averages gradients and loss in fp32 over the axis
+  before clipping, summing the ranks' values in rank order — the
+  reduction the reference's GSPMD step under ``compute_mesh(make_host_mesh())``
+  leaves implicit;
+* compressed: ``make_train_step(compress_axis=...)`` reduces with the
+  error-feedback int8 ``dist.compression.compressed_psum`` and threads each
+  rank's residual through ``state['grad_err']``;
+  `shard_map_compressed_step` wraps it to take the global batch.
+
+Either way every rank ends a step with the same parameter and optimizer
+bits. Gradient shardings (``grad_shardings``) lay tensors out over a
+``'model'`` axis and wait for the tensor-parallel slice: asking for them
+raises `NotImplementedError`.
+
+Steps run under `deterministic`: the same state and batch give
 bit-identical parameters and optimizer state run to run on the card too
 (cuDNN's default weight-gradient algorithms sum in a run-dependent order),
 so a crash -> resume replays the clean run bit for bit.
@@ -15,12 +29,15 @@ so a crash -> resume replays the clean run bit for bit.
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Callable, Dict, Iterator, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
+from ..dist.context import compute_mesh, current_mesh
+from ..launch.mesh import ProcessMesh
 from .optim import Optimizer, apply_updates, clip_by_global_norm
-from .tree import tree_leaves_with_path, tree_map
+from .tree import tree_leaves_with_path, tree_map, tree_map_with_path
 
 
 @contextlib.contextmanager
@@ -47,12 +64,76 @@ def deterministic() -> Iterator[None]:
 
 def init_train_state(params: Any, opt: Optimizer, *, compress: bool = False) -> Dict[str, Any]:
     """Train state: ``{"params", "opt", "step"}`` (``step`` an int32 0-d tensor
-    on the params' device)."""
-    if compress:
-        raise NotImplementedError("gradient compression arrives with distribution")
+    on the params' device). With ``compress=True`` it also carries
+    ``grad_err``, zero float32 residuals shaped like ``params``: the
+    rank-local error-feedback state a ``compress_axis`` step consumes."""
     device = tree_leaves_with_path(params)[0][1].device
-    return {"params": params, "opt": opt.init(params),
-            "step": torch.zeros((), dtype=torch.int32, device=device)}
+    state = {"params": params, "opt": opt.init(params),
+             "step": torch.zeros((), dtype=torch.int32, device=device)}
+    if compress:
+        from ..dist.compression import init_error_state
+        state["grad_err"] = init_error_state(params)
+    return state
+
+
+def data_mesh() -> Optional[ProcessMesh]:
+    """The ambient process-group mesh when its 'data' axis has more than
+    one rank, else None."""
+    mesh = current_mesh()
+    return mesh if isinstance(mesh, ProcessMesh) and mesh.shape["data"] > 1 else None
+
+
+def local_rows(batch: Dict, rank: int, n: int) -> Dict:
+    """Rank ``rank``'s contiguous rows of every leaf with a leading dim
+    (the reference's ``P('data')`` batch layout); 0-d leaves pass."""
+    def rows(x):
+        if not isinstance(x, torch.Tensor) or x.ndim == 0:
+            return x
+        if x.shape[0] % n:
+            raise ValueError(f"batch dim {x.shape[0]} does not divide over {n} ranks")
+        b = x.shape[0] // n
+        return x[rank * b:(rank + 1) * b]
+    return tree_map(rows, batch)
+
+
+def gather_rows(flat: torch.Tensor, group=None) -> torch.Tensor:
+    """``[n, *flat.shape]``: every rank's ``flat`` in rank order, the same
+    bits on every rank. One ``all_reduce(SUM)`` of a stack holding this
+    rank's row and zeros elsewhere (adding zeros is exact, up to the sign
+    of a zero), which both NCCL and gloo (CUDA tensors included) take; it
+    moves n times the bytes of one buffer."""
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    rows = torch.zeros((n,) + tuple(flat.shape), dtype=flat.dtype, device=flat.device)
+    rows[r] = flat
+    dist.all_reduce(rows, op=dist.ReduceOp.SUM, group=group)
+    return rows
+
+
+def rank_order_mean(tensors: List[torch.Tensor], group=None) -> List[torch.Tensor]:
+    """The fp32 mean of each tensor over ``group``'s ranks, summed in rank
+    order (((x0 + x1) + x2) + ...) / n, cast back to its dtype: one fixed
+    order, so every rank gets the same bits."""
+    flat = torch.cat([t.to(torch.float32).reshape(-1) for t in tensors])
+    rows = gather_rows(flat, group)
+    total = rows[0].clone()
+    for row in rows[1:]:
+        total += row
+    total = total / torch.tensor(float(rows.shape[0]), dtype=torch.float32,
+                                 device=total.device)
+    out, at = [], 0
+    for t in tensors:
+        out.append(total[at:at + t.numel()].reshape(t.shape).to(t.dtype))
+        at += t.numel()
+    return out
+
+
+def _axis_group(axis: str):
+    mesh = current_mesh()
+    if isinstance(mesh, ProcessMesh) and axis in mesh.axis_names:
+        return mesh.group(axis)
+    raise RuntimeError(
+        f"compress_axis={axis!r} reduces over a process group: run the step under "
+        "compute_mesh(launch.mesh.make_host_mesh()) or through shard_map_compressed_step")
 
 
 def value_and_grad(loss_fn: Callable[[Any, Dict], torch.Tensor]):
@@ -88,12 +169,37 @@ def make_train_step(
     leading dim is split into that many microbatches, whose gradients and
     losses are averaged in float32 (one backward each, so memory holds one
     microbatch's graph). The returned step is ``(state, batch) -> (state,
-    metrics)`` and leaves its input state unchanged; its gradients come from
-    `value_and_grad`, under `deterministic`."""
-    if grad_shardings is not None or grad_dtype or compress_axis or compress_per_channel:
+    metrics)`` and leaves its input state unchanged; it runs under
+    `deterministic`.
+
+    grad_dtype: cast each gradient to this dtype (e.g. "bfloat16") before
+    the cross-rank reduction, as the reference does.
+
+    compress_axis: the mesh axis whose process group the error-feedback
+    int8 `dist.compression.compressed_psum` reduces over, under an ambient
+    `launch.mesh.ProcessMesh`. The state must come from
+    ``init_train_state(compress=True)`` and holds this rank's residual; the
+    batch is this rank's rows (`shard_map_compressed_step` takes the global
+    batch instead). The loss metric is averaged over the axis.
+    ``compress_per_channel`` takes one scale per last-axis channel.
+
+    Without ``compress_axis``, under an ambient process-group mesh with more
+    than one 'data' rank, the step is the plain data-parallel one (module
+    docstring). ``grad_shardings`` raises `NotImplementedError`."""
+    if grad_shardings is not None:
         raise NotImplementedError(
-            "grad_shardings / grad_dtype / compress_axis arrive with distribution")
-    grad_fn = value_and_grad(loss_fn)
+            "grad_shardings lay gradients out over a 'model' axis: they arrive with the "
+            "tensor-parallel slice (ROADMAP, queue 1)")
+    if compress_per_channel and not compress_axis:
+        raise ValueError("compress_per_channel needs compress_axis")
+    value_grad = value_and_grad(loss_fn)
+    dtype = getattr(torch, grad_dtype) if grad_dtype else None
+
+    def grad_fn(params, batch):
+        loss, grads = value_grad(params, batch)
+        if dtype is not None:
+            grads = tree_map(lambda g: g.to(dtype), grads)
+        return loss, grads
 
     def compute_grads(params, batch):
         if accum_steps == 1:
@@ -114,13 +220,90 @@ def make_train_step(
         return loss, grads
 
     def train_step(state: Dict, batch: Dict) -> Tuple[Dict, Dict]:
-        loss, grads = compute_grads(state["params"], batch)
-        with torch.no_grad():
-            grads, gnorm = clip_by_global_norm(grads, clip_norm)
-            lr = lr_fn(state["step"])
-            updates, new_opt = opt.update(grads, state["opt"], state["params"], lr)
-            new_params = apply_updates(state["params"], updates)
+        with deterministic():
+            mesh = None if compress_axis else data_mesh()
+            if mesh is not None:
+                batch = local_rows(batch, mesh.rank, mesh.shape["data"])
+            loss, grads = compute_grads(state["params"], batch)
+            new_err = None
+            with torch.no_grad():
+                if compress_axis:
+                    from ..dist.compression import compressed_psum
+                    group = _axis_group(compress_axis)
+                    grads, new_err = compressed_psum(grads, state["grad_err"], group,
+                                                     per_channel=compress_per_channel)
+                    loss, = rank_order_mean([loss], group)
+                elif mesh is not None:
+                    paths = [p for p, _ in tree_leaves_with_path(grads)]
+                    loss, *means = rank_order_mean(
+                        [loss] + [g for _, g in tree_leaves_with_path(grads)], mesh.group())
+                    by_path = dict(zip(paths, means))
+                    grads = tree_map_with_path(lambda p, _: by_path[p], grads)
+                grads, gnorm = clip_by_global_norm(grads, clip_norm)
+                lr = lr_fn(state["step"])
+                updates, new_opt = opt.update(grads, state["opt"], state["params"], lr)
+                new_params = apply_updates(state["params"], updates)
         new_state = {"params": new_params, "opt": new_opt, "step": state["step"] + 1}
+        if new_err is not None:
+            new_state["grad_err"] = new_err
         return new_state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
 
     return train_step
+
+
+def stack_error_state(state: Dict, n_shards: int) -> Dict:
+    """``state`` with zero ``grad_err`` leaves of the reference's stacked
+    layout: a leading ``[n_shards]`` rank axis (row r is rank r's residual).
+    `shard_map_compressed_step` takes it; checkpoints store it."""
+    return dict(state, grad_err=tree_map(
+        lambda e: torch.zeros((n_shards,) + tuple(e.shape), dtype=e.dtype, device=e.device),
+        state["grad_err"]))
+
+
+def shard_map_compressed_step(step, mesh: ProcessMesh, data_axis: str = "data"):
+    """Run a ``compress_axis`` step data-parallel over ``mesh``'s process group.
+
+    The wrapped step takes the *global* batch and keeps this rank's rows,
+    and takes ``grad_err`` either in the stacked ``[n, ...]`` layout
+    (`stack_error_state`, e.g. a fresh or restored state: this rank uses
+    row ``rank``) or as this rank's ``[1, ...]`` block, which is what it
+    returns. The compressed reduction gives every rank the same mean
+    gradients, so params and optimizer state stay bit-identical across
+    ranks. The step runs with ``mesh`` as the ambient compute mesh.
+    """
+    n = int(mesh.shape[data_axis])
+
+    def local_block(e):
+        if e.shape[0] == n:
+            return e[mesh.rank]
+        if e.shape[0] == 1:
+            return e[0]
+        raise ValueError(f"grad_err leading dim {e.shape[0]}: expected {n} (stacked) or 1")
+
+    def wrapped(state: Dict, batch: Dict) -> Tuple[Dict, Dict]:
+        state = dict(state, grad_err=tree_map(local_block, state["grad_err"]))
+        with compute_mesh(mesh):
+            new_state, metrics = step(state, local_rows(batch, mesh.rank, n))
+        new_state["grad_err"] = tree_map(lambda e: e[None], new_state["grad_err"])
+        return new_state, metrics
+
+    return wrapped
+
+
+def gather_error_state(state: Dict, mesh: ProcessMesh, data_axis: str = "data") -> Dict:
+    """``state`` with ``grad_err`` in the stacked ``[n, ...]`` layout, every
+    rank's ``[1, ...]`` block gathered in rank order (the same on every
+    rank); a state already stacked, or one without residuals, is returned
+    as it is."""
+    n = int(mesh.shape[data_axis])
+    if "grad_err" not in state:
+        return state
+    leaves = tree_leaves_with_path(state["grad_err"])
+    if leaves[0][1].shape[0] == n:
+        return state
+    rows = gather_rows(torch.cat([e.reshape(-1) for _, e in leaves]), mesh.group(data_axis))
+    by_path, at = {}, 0
+    for path, e in leaves:
+        by_path[path] = rows[:, at:at + e.numel()].reshape((n,) + tuple(e.shape[1:]))
+        at += e.numel()
+    return dict(state, grad_err=tree_map_with_path(lambda p, _: by_path[p], state["grad_err"]))

@@ -34,7 +34,10 @@ precisions equal to the CPU's, one fused pipeline's launches per occupied
 precision per engine step, and the same results with the observability
 plane attached. The serving fleet at TINY: in-process replicas with a
 wedge and a NaN-poison, and subprocess workers with one killed, every ok
-result bit-identical to a solo engine's.
+result bit-identical to a solo engine's. Distribution: TINY served under a
+data mesh of two shards of cuda:0 bit-identical to the solo engine, and
+`compressed_psum` on two gloo ranks holding CUDA tensors bit-identical to
+the same ranks on the CPU (`tests/torch_dist_workers.py` runs the ranks).
 """
 import numpy as np
 import pytest
@@ -937,3 +940,58 @@ def test_worker_fleet_on_card_replays_bit_identical(cuda):
         for key in _FLEET_STATS:
             assert results[rid].stats[key] == want[i].stats[key], key
 
+
+
+@pytest.mark.cuda
+def test_sharded_engine_on_two_shards_of_one_card_bit_identical_to_solo(cuda):
+    """TINY through EngineCore + SNNRunner under an in-process data mesh of
+    two shards, both on cuda:0: every result (logits, spike counts, skip
+    rates, occupancy trace, energy) bit for bit the solo engine's, and
+    kernels 1-3 launched twice per engine step."""
+    from repro_torch.dist.context import compute_mesh
+    from repro_torch.launch.mesh import DataMesh
+    from repro_torch.serve.runners.snn import SNNRunner
+    cfg = vgg9_snn.TINY
+    runner = SNNRunner(cfg, vgg9.init_vgg9(torch.Generator().manual_seed(0), cfg, cuda),
+                       device=cuda)
+    imgs = _fleet_images(6)
+
+    def serve():
+        core = EngineCore(runner, EngineConfig(slots=4))
+        ids = [core.submit(img) for img in imgs]
+        done = core.run_until_complete()
+        return core, [done[i] for i in ids]
+    _, solo = serve()
+    reset_cuda_launches()
+    with compute_mesh(DataMesh(["cuda:0", "cuda:0"])):
+        core, sharded = serve()
+    steps = core.stats()["steps_run"]
+    assert CUDA_LAUNCHES["dense_conv_lif"] == 2 * steps
+    assert CUDA_LAUNCHES["spike_matmul_mapped"] == 2 * 3 * steps
+    for a, b in zip(solo, sharded):
+        assert np.array_equal(a.outputs, b.outputs)
+        for key in _FLEET_STATS + ("energy_j",):
+            assert a.stats[key] == b.stats[key], key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_channel", [False, True])
+def test_compressed_psum_over_gloo_with_cuda_tensors_equals_cpu(cuda, per_channel):
+    """`compressed_psum` on two gloo ranks holding CUDA tensors (both on
+    cuda:0) against the same two ranks on the CPU: mean gradients and
+    residuals bit for bit equal."""
+    from torch_dist_workers import run_ranks
+    rng = np.random.default_rng(3)
+    shapes = {"w": (64, 48), "b": (48,), "stack": (3, 32, 16)}
+    inputs = {"grads": {k: rng.normal(size=(2,) + s).astype(np.float32) for k, s in shapes.items()},
+              "err": {k: (rng.normal(size=(2,) + s) * 1e-3).astype(np.float32)
+                      for k, s in shapes.items()},
+              "per_channel": per_channel}
+    card = run_ranks("psum", 2, inputs, device="cuda")
+    cpu = run_ranks("psum", 2, inputs, device="cpu")
+    for a, b in zip(card, cpu):
+        for part in ("mean", "err"):
+            for k in shapes:
+                assert np.array_equal(a[part][k], b[part][k]), (part, k)
+    for k in shapes:
+        assert np.array_equal(card[0]["mean"][k], card[1]["mean"][k])

@@ -1,11 +1,11 @@
 """The port CLI's flag-compatibility table against the JAX CLI's.
 
-Every rule of the JAX package's `launch.serve.FLAG_RULES` whose flags the
-port serves has a rule of the same name and message in the port's table,
-and nothing else is there; each fires exactly once on the reference test's
-minimal violation (`tests/test_launch_flags.py`), also through the CLI,
-which exits with its message. The rule on the flag the port does not
-serve yet (`NOT_PORTED`: ``--data-shard``) joins with that flag.
+Every rule of the JAX package's `launch.serve.FLAG_RULES` has a rule of the
+same name and message in the port's table, and nothing else is there (the
+port serves every flag of that CLI, ``--data-shard`` included); each fires
+exactly once on the reference test's minimal violation
+(`tests/test_launch_flags.py`), also through the CLI, which exits with its
+message.
 """
 import argparse
 
@@ -15,7 +15,8 @@ from repro.launch.serve import FLAG_RULES as REF_RULES
 from repro_torch.launch import serve as cli
 from test_launch_flags import VIOLATIONS
 
-UNPORTED = {flag for flag, _ in cli.NOT_PORTED}
+#: flags of the JAX CLI that the port does not serve: none are left
+UNPORTED = set(getattr(cli, "NOT_PORTED", ()))
 
 
 def _flags(over):
@@ -34,13 +35,14 @@ def ns(**over):
 
 
 def test_port_rules_are_the_reference_rules_on_ported_flags():
-    assert UNPORTED == {"--data-shard"}
+    assert UNPORTED == set() and not hasattr(cli, "NOT_PORTED")
     assert PORTED == sorted(["slo-needs-continuous", "precision-vs-int4", "lm-only-knobs",
                              "sampling-needs-continuous", "speculate-vs-precision",
                              "replicas-range", "workers-range", "slo-vs-fleet",
                              "precision-vs-fleet", "workers-vs-replicas",
                              "workers-vs-fault-plan", "workers-vs-precision",
-                             "workers-vs-slo"])
+                             "workers-vs-slo", "workers-vs-data-shard"])
+    assert PORTED == sorted(rule.name for rule in REF_RULES)
     ours = {rule.name: rule.error for rule in cli.FLAG_RULES}
     assert len(ours) == len(cli.FLAG_RULES), "duplicate rule names"
     assert ours == {rule.name: rule.error for rule in REF_RULES if rule.name in PORTED}

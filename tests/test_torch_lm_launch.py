@@ -12,7 +12,8 @@ Bars, and why:
   the reference's loop on carried parameters and batches: per-step losses
   within 1e-4;
 - the launcher's flags: the reference's defaults and `reduce_cfg`, its
-  ``ap.error``, and "not ported yet" for ``--compress-grads``.
+  ``ap.error``, and ``--compress-grads`` training at world size 1 (several
+  ranks: `tests/test_torch_dist.py`).
 """
 import argparse
 import os
@@ -127,8 +128,14 @@ def test_reduce_cfg_is_the_reference_launchers(arch):
 
 
 def test_compress_flags(capsys):
-    with pytest.raises(SystemExit, match="not ported yet: --compress-grads"):
-        launch.main(["--device", "cpu", "--compress-grads"])
+    """--compress-grads trains (a process group of one, started and torn
+    down by the launcher); --compress-per-channel alone is refused."""
+    import torch.distributed as dist
+    history = launch.main(["--device", "cpu", "--compress-grads", "--compress-per-channel",
+                           "--steps", "2", "--seq", "16", "--batch", "2"])
+    assert [s for s, _ in history] == [0, 1] and np.isfinite(history[-1][1]["loss"])
+    assert "rank 0: residual |grad_err| sum" in capsys.readouterr().out
+    assert not dist.is_initialized()
     with pytest.raises(SystemExit) as exc:
         launch.main(["--device", "cpu", "--compress-per-channel"])
     assert exc.value.code == 2

@@ -376,13 +376,22 @@ def test_grad_accumulation_matches_full_batch(jax_params):
 
 
 def test_train_step_refuses_distribution_options():
+    """What the data-parallel slice left out is refused: gradient shardings
+    (a 'model' axis layout); a compressed step needs a process group to
+    reduce over and raises without one. What it ported works on one
+    device: the compressed state and the gradient dtype cast."""
     opt = optim.sgd()
-    for kw in (dict(compress_axis="data"), dict(grad_dtype="bfloat16"),
-               dict(grad_shardings={})):
-        with pytest.raises(NotImplementedError):
-            make_train_step(lambda p, b: p["w"].sum(), opt, schedule.constant(0.1), **kw)
-    with pytest.raises(NotImplementedError):
-        init_train_state({"w": torch.zeros(2)}, opt, compress=True)
+    loss = lambda p, b: (p["w"] ** 2).sum()  # noqa: E731
+    with pytest.raises(NotImplementedError, match="tensor-parallel"):
+        make_train_step(loss, opt, schedule.constant(0.1), grad_shardings={})
+    state = init_train_state({"w": torch.ones(2)}, opt, compress=True)
+    assert torch.equal(state["grad_err"]["w"], torch.zeros(2))
+    step = make_train_step(loss, opt, schedule.constant(0.1), compress_axis="data")
+    with pytest.raises(RuntimeError, match="process group"):
+        step(state, {})
+    cast = make_train_step(loss, opt, schedule.constant(0.1), grad_dtype="bfloat16")
+    new, _ = cast(init_train_state({"w": torch.ones(2)}, opt), {})
+    assert new["opt"]["mu"]["w"].dtype == torch.float32 and float(new["params"]["w"][0]) < 1.0
 
 
 def _deterministic_flags():
