@@ -137,7 +137,8 @@ Run from the root of a checkout. Phases, one line or block each:
              relative of the CPU's, the worst gradient's relative L2 within
              1e-3, expert sets equal where the router's gap exceeds 1e-4;
              the bf16 loss beside the fp32 one on the same weights; (c)
-             xlstm-125m at full size (bf16, 12 layers) through `TrainLoop`
+             xlstm-125m at full width and 4 of its 12 layers (bf16; cut
+             from full depth to make room for phase 13) through `TrainLoop`
              with a checkpoint every 2 steps: a clean 6-step run bit-identical
              to one that fails at step 3 and resumes from step 2, the last
              checkpoint's bf16 leaves restoring bit for bit; then
@@ -155,9 +156,10 @@ Run from the root of a checkout. Phases, one line or block each:
              seeded gradients of xlstm-125m's full-size leaf shapes, per
              tensor and per channel: mean gradients and residuals bit for
              bit equal, the residual invariant within f32 rounding, wire
-             bytes and ms per call; (c) xlstm-125m at full width and depth
-             in fp32 through `launch.train` under torchrun on two ranks of
-             cuda:0 (gloo), 3 steps plain and 3 with --compress-grads
+             bytes and ms per call; (c) xlstm-125m at full width and 4 of
+             its 12 layers (cut as 11c's) in fp32 through `launch.train`
+             under torchrun on two ranks of cuda:0 (gloo), 3 steps plain
+             and 3 with --compress-grads
              (this script re-enters itself as each rank with
              `--train-rank`): every rank's parameters and optimizer state
              equal (fingerprints after every step, every bit after the
@@ -170,6 +172,25 @@ Run from the root of a checkout. Phases, one line or block each:
              NCCL as a plain CLI; (d) `launch.serve --data-shard 2` on a
              one-card machine and `--workers 2 --data-shard 2` refused with
              the reference's messages.
+13. tp     — tensor parallelism, every rank on the one card over gloo (this
+             script re-enters itself as each torchrun rank with
+             `--tp-rank`): (a) qwen1.5-4b at full width, 2 layers, fp32,
+             batch 4 x 512 on a (2, 2) ('data', 'model') mesh: rank 0
+             first takes one process's step alone; then every rank holds
+             its `param_spec` shards (state bytes against one process's, at
+             most 0.55), the first step's loss, gradients (averaged over
+             the data ranks) and parameters against one process's (1e-5
+             relative, 1e-4 per gradient leaf, 1e-5 relative L2), the data
+             replicas of every shard bit-identical after each of 2 AdamW
+             steps, a second run of the 2 steps bit-identical, ms per step
+             and peak allocated memory per rank; (b) granite-moe-3b at full
+             width, 2 layers, bf16, remat, on (1, 2): the same against one
+             process (1e-3 loss and parameters; gradients reported), the
+             expert sets equal on both model ranks, and in an fp32 forward
+             equal to one process's where the router's gap exceeds 1e-4;
+             (c) 13a's parameters saved on (2, 2), restored onto (4, 1) by
+             the same ranks and onto this one process, every leaf
+             bit-identical.
 
 Phase 3 holds `spike_matmul_mapped` at spike densities 0.1, 0.33 and 1.0:
 within 1e-4 of the plain product, bit for bit the plain k-ascending sum
@@ -215,7 +236,11 @@ at every geometry it has at each of the unfused pipeline's shapes and
 density (each result held bit for bit against the k-ascending sum), and
 stops there.
     python3 chip_smoke.py --phase12
-runs phases 1, 2 and 12 only (its solo engines served on the spot).
+runs phases 1, 2 and 12 only (its solo engines served on the spot), and
+
+    python3 chip_smoke.py --phase13
+
+phases 1, 2 and 13 only.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero before it. Every per-shape row and serving figure also goes to
@@ -2479,8 +2504,12 @@ def check_train_against_cpu(torch, arch, errors):
     return row
 
 
+# 11c: xlstm-125m's depth (cut from its 12 layers to make room for phase 13)
+RESUME_LAYERS = 4
+
+
 def check_train_resume(torch, errors):
-    """Phase 11c: xlstm-125m at full size (bf16, 12 layers, remat) through
+    """Phase 11c: xlstm-125m at full width, RESUME_LAYERS layers (bf16, remat) through
     `TrainLoop`, checkpointing every 2 steps: a clean 6-step run against
     one that fails at step 3 and resumes from its step-2 checkpoint (losses
     and final state bit for bit), and the last checkpoint restored against
@@ -2496,7 +2525,7 @@ def check_train_resume(torch, errors):
     from repro_torch.train.schedule import warmup_cosine
     from repro_torch.train.train_step import init_train_state, make_train_step
     t0 = time.perf_counter()
-    cfg = get_arch("xlstm-125m")
+    cfg = get_arch("xlstm-125m").with_(n_layers=RESUME_LAYERS)
     root = os.path.join(ROOT, "build", "chip_smoke_ckpt")
     shutil.rmtree(root, ignore_errors=True)
     steps = 6
@@ -2548,7 +2577,7 @@ def check_train_resume(torch, errors):
            "round_trip": round_trip, "seconds_loop": t1 - t0,
            "cli_rc": cli.returncode, "cli_final": final_line,
            "cli_seconds": time.perf_counter() - t1}
-    print(f"train {cfg.name} (full size: {cfg.n_layers} layers, {cfg.dtype}, remat {cfg.remat}; "
+    print(f"train {cfg.name} (full width, {cfg.n_layers} layers, {cfg.dtype}, remat {cfg.remat}; "
           f"batch 8 x 128) through TrainLoop, a checkpoint every 2 steps: losses "
           f"{[round(v, 6) for v in losses]}; failed at step 3, resumed from step {start}: "
           f"bit-identical to the clean run {same}; the step-{steps} checkpoint "
@@ -2865,8 +2894,9 @@ def check_fleet_cli(errors):
 # not what more cards would give
 DIST_RANKS = 2
 PSUM_ARCH = "xlstm-125m"
-# 12c: the launcher's own flags at xlstm-125m's full width and depth, fp32
-DIST_TRAIN_ARGS = ["--arch", "xlstm-125m", "--d-model", "0", "--n-layers", "0", "--vocab", "0",
+# 12c: the launcher's own flags at xlstm-125m's full width, 4 of its 12 layers
+# (cut from full depth to make room for phase 13), fp32
+DIST_TRAIN_ARGS = ["--arch", "xlstm-125m", "--d-model", "0", "--n-layers", "4", "--vocab", "0",
                    "--steps", "3", "--device", "cuda"]
 DIST_TRAIN_TOL = 1e-5
 
@@ -3244,7 +3274,7 @@ def check_dist_training(torch, errors):
     med = {k: sorted(v[1:])[len(v[1:]) // 2] if len(v) > 1 else v[0]
            for k, v in res["step_ms"].items()}
     res["median_step_ms"] = med
-    print(f"dist 12c: {PSUM_ARCH} full width and depth, fp32, batch {args.batch} x {args.seq}, "
+    print(f"dist 12c: {PSUM_ARCH} full width, {cfg.n_layers} layers, fp32, batch {args.batch} x {args.seq}, "
           f"through launch.train under torchrun on {DIST_RANKS} ranks sharing cuda:0 (gloo, "
           f"reductions staged through the host): plain {agree['plain']}; compressed "
           f"{agree['compressed']}, residual sums per rank {residuals}; step ms plain "
@@ -3277,6 +3307,388 @@ def check_distribution(torch, cfgs, solo, solo_ms, errors):
     out["train"] = check_dist_training(torch, errors)
     out["seconds"] = time.perf_counter() - t12
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 13: tensor parallelism on the card
+# ---------------------------------------------------------------------------
+
+# 13a: qwen1.5-4b at full width, 2 layers, fp32, on a (2, 2) mesh of 4 ranks;
+# 13b: granite-moe-3b at full width, 2 layers, bf16, remat, on (1, 2); every
+# rank on cuda:0 over gloo, so the times say what the collectives cost staged
+# through the host, not what NCCL over several cards gives
+TP_CASES = {"dense": ("qwen1.5-4b", (2, 2), "float32"),
+            "moe": ("granite-moe-3b-a800m", (1, 2), "bfloat16")}
+TP_LAYERS, TP_BATCH, TP_SEQ, TP_LR, TP_STEPS = 2, 4, 512, 1e-4, 2
+# against one process on the card: loss (relative), worst gradient leaf and
+# the parameter tree after one step (relative L2). fp32: the row-parallel
+# halves sum in another order; bf16: each half is rounded to bf16 before
+# the two are added (the gradients are reported, not barred)
+TP_BARS = {"float32": {"loss": 1e-5, "grad": 1e-4, "params": 1e-5},
+           "bfloat16": {"loss": 1e-3, "grad": None, "params": 1e-3}}
+TP_STATE_BAR = 0.55
+
+
+def _tp_template(manifest_path, device):
+    """A restore template from a checkpoint's manifest: every leaf's shape,
+    dtype and device, no data."""
+    import types
+    import torch
+    with open(manifest_path) as f:
+        manifest = json.load(f)
+    tree: dict = {}
+    for leaf in manifest["leaves"]:
+        keys = [int(k) if k.isdigit() else k.strip("'") for k in leaf["path"][1:-1].split("][")]
+        node = tree
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = types.SimpleNamespace(shape=tuple(leaf["shape"]),
+                                               dtype=getattr(torch, leaf["dtype"]),
+                                               device=torch.device(device))
+    return tree
+
+
+def _leaf_digest(x) -> str:
+    """sha256 of a tensor's bytes (bf16 too: hashed as its 16-bit patterns)."""
+    import hashlib
+    import torch
+    t = x.detach().contiguous().cpu()
+    bits = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()]
+    return hashlib.sha256(memoryview(t.view(bits).numpy()).cast("B")).hexdigest()
+
+
+def tp_rank(case, out_prefix):
+    """Phase 13, one torchrun worker (every rank on cuda:0, gloo): the case's
+    arch at full width and TP_LAYERS layers on its mesh. Rank 0 first runs
+    one process's first step alone on the card (the other ranks wait); then
+    every rank places the same seeded weights by `param_spec`, takes the
+    first step's gradients (averaged over the data ranks) and TP_STEPS
+    AdamW steps, twice from one state, and the dense case writes its
+    parameters as a checkpoint and restores it onto a (4, 1) mesh. Each
+    rank writes ``{out_prefix}.{rank}.json``."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import get_arch
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist.context import compute_mesh
+    from repro_torch.launch.mesh import make_host_mesh, make_process_mesh
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.loop import replicas_agree
+    from repro_torch.train.optim import make_optimizer
+    from repro_torch.train.schedule import constant
+    from repro_torch.train.train_step import (init_train_state, local_rows, make_train_step,
+                                              rank_order_mean, value_and_grad)
+    from repro_torch.train.tree import keystr, tree_leaves_with_path
+    arch, shape, dtype = TP_CASES[case]
+    cfg = get_arch(arch).with_(n_layers=TP_LAYERS, dtype=dtype)
+    mesh = make_process_mesh(*shape, device="cuda")
+    rank = mesh.rank
+    params = tf.init_params(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+    batch = make_batch_fn(cfg, 0, TP_BATCH, TP_SEQ, "cuda")(0)
+    opt = make_optimizer(cfg.optimizer)
+    loss_fn = lambda p, b: tf.train_loss(p, b, cfg)  # noqa: E731
+    step = make_train_step(loss_fn, opt, constant(TP_LR))
+    out = {"rank": rank, "coords": [mesh.data_rank, mesh.model_rank], "backend": mesh.backend}
+
+    def sync_ms(t0):
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def nbytes(tree):
+        return sum(x.to_local().nbytes if isinstance(x, DTensor) else x.nbytes
+                   for _, x in tree_leaves_with_path(tree))
+
+    marks = [("start", time.perf_counter())]
+    ref = None
+    if rank == 0:                     # one process, alone on the card
+        torch.cuda.reset_peak_memory_stats()
+        with Routes() as routes:
+            loss1, grads1 = value_and_grad(loss_fn)(params, batch)
+        grads1 = {keystr(p): g.cpu() for p, g in tree_leaves_with_path(grads1)}
+        state = init_train_state(params, opt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, _ = step(state, batch)
+        one_ms = sync_ms(t0)
+        ref = {"loss": float(loss1), "routes": routes.calls, "grads": grads1,
+               "params": {keystr(p): x.cpu() for p, x in tree_leaves_with_path(new["params"])}}
+        out["one_process"] = {
+            "ms": one_ms, "peak_bytes": torch.cuda.max_memory_allocated(),
+            "state_bytes": nbytes(params) * 2 + nbytes(state["opt"])}
+        del grads1, state, new
+        torch.cuda.empty_cache()
+    dist.barrier()
+    marks.append(("one process", time.perf_counter()))
+
+    def fresh_state():
+        """The seeded weights placed by `param_spec` (every rank draws the
+        same whole tensors on the card and keeps its shards)."""
+        whole = params if params is not None else tf.init_params(
+            torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+        placed = shd.place(whole, mesh, cfg.fsdp_experts)
+        del whole
+        torch.cuda.empty_cache()
+        return init_train_state(placed, opt)
+
+    state0 = fresh_state()
+    params = None
+    out["state_bytes"] = nbytes(state0["params"]) * 2 + nbytes(state0["opt"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    n_data = mesh.shape["data"]
+
+    def whole_on_rank0(x, local=None):
+        """The whole tensor of a DTensor leaf (or of ``local`` laid out as
+        it) on rank 0; a collective on every rank."""
+        if local is not None:
+            x = DTensor.from_local(local, x.device_mesh, x.placements, run_check=False,
+                                   shape=x.shape, stride=x.stride())
+        full = shd.full_tensor(x)
+        return full if rank == 0 else None
+
+    def rel(a, b):
+        return float((a - b).norm() / max(float(b.norm()), 1e-30))
+
+    with compute_mesh(mesh):
+        with Routes() as routes:
+            loss, grads = value_and_grad(loss_fn)(state0["params"],
+                                                  local_rows(batch, mesh.data_rank, n_data))
+        if n_data > 1:
+            loss, = rank_order_mean([loss], mesh.group("data"))
+        worst, worst_key = 0.0, None
+        for path, g in tree_leaves_with_path(grads):
+            local = g.to_local()
+            if n_data > 1:
+                local, = rank_order_mean([local], mesh.group("data"))
+            full = whole_on_rank0(g, local)
+            if rank == 0:
+                r = rel(full, ref["grads"][keystr(path)].cuda())
+                if r > worst:
+                    worst, worst_key = r, keystr(path)
+            del full, local
+        out["routes"] = _leaf_digest(torch.cat([i.reshape(-1) for _, i in routes.calls])) \
+            if routes.calls else None
+        if rank == 0:
+            out["loss_rel"] = abs(float(loss) - ref["loss"]) / abs(ref["loss"])
+            out["grad_worst"] = [worst, worst_key]
+            if routes.calls:
+                differ, clear, tokens = route_differences(torch, routes.calls, ref["routes"],
+                                                          cfg.top_k)
+                out["route_vs_one_process"] = {"differ": differ, "clear": clear,
+                                               "tokens": tokens}
+        del grads
+        torch.cuda.empty_cache()
+        marks.append(("gradients", time.perf_counter()))
+
+        def against_one_process(new_params):
+            """The parameter tree after the first step against one process's."""
+            num = den = 0.0
+            worst_p = (0.0, None)
+            for path, x in tree_leaves_with_path(new_params):
+                full = whole_on_rank0(x)
+                if rank == 0:
+                    b = ref["params"][keystr(path)].cuda()
+                    num += float((full - b).norm()) ** 2
+                    den += float(b.norm()) ** 2
+                    worst_p = max(worst_p, (rel(full, b), keystr(path)))
+                    del b
+                del full
+            if rank == 0:
+                out["params_rel"] = (num / den) ** 0.5
+                out["params_worst"] = list(worst_p)
+
+        def run(state, first=False):
+            """TP_STEPS steps; the first run also checks the data replicas
+            after each step and the first step against one process (the
+            rerun is held against the first run's bits)."""
+            times, agree, losses = [], [], []
+            for i in range(TP_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch)
+                times.append(sync_ms(t0))
+                losses.append(float(metrics["loss"]))
+                if first:
+                    agree.append(replicas_agree(state, mesh, exact=True) if n_data > 1
+                                 else None)
+                if first and i == 0:
+                    against_one_process(state["params"])
+            return state, times, agree, losses
+
+        state, times, agree, losses = run(state0, first=True)
+        del state0
+        out.update(step_ms=times, agree=agree, losses=losses,
+                   peak_bytes=torch.cuda.max_memory_allocated())
+        marks.append(("steps", time.perf_counter()))
+        kept = [x.to_local().cpu() if isinstance(x, DTensor) else x.cpu()
+                for _, x in tree_leaves_with_path(state)]
+        del state
+        torch.cuda.empty_cache()
+        again, times2, _, losses2 = run(fresh_state())
+        marks.append(("rerun", time.perf_counter()))
+        out["rerun_equal"] = all(
+            torch.equal(a, (b.to_local() if isinstance(b, DTensor) else b).cpu())
+            for a, (_, b) in zip(kept, tree_leaves_with_path(again)))
+        out["rerun_losses"] = losses2
+        out["rerun_step_ms"] = times2
+        del kept
+        ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_tp", case)
+        if case == "dense":
+            t0 = time.perf_counter()
+            ckpt.save(ckpt_dir, TP_STEPS, {"params": again["params"], "step": again["step"]})
+            dist.barrier()
+            out["save_s"] = time.perf_counter() - t0
+    if case == "dense":
+        t0 = time.perf_counter()
+        final = os.path.join(ckpt_dir, f"step_{TP_STEPS:08d}")
+        with compute_mesh(make_host_mesh("cuda")):     # the same 4 ranks as (4, 1)
+            restored = ckpt.restore(ckpt_dir, TP_STEPS, _tp_template(
+                os.path.join(final, "manifest.json"), "cuda"))
+        out["restore_s"] = time.perf_counter() - t0
+        equal = True
+        for (path, full), (_, x) in zip(tree_leaves_with_path(restored["params"]),
+                                        tree_leaves_with_path(again["params"])):
+            mine = shd._from_full(full, x.device_mesh, x.placements).to_local()
+            equal &= torch.equal(mine, x.to_local())
+            del mine
+        out["restore_41_equal"] = equal
+        if rank == 0:
+            out["digests"] = {keystr(p): _leaf_digest(x)
+                              for p, x in tree_leaves_with_path(restored["params"])}
+        del restored
+    if case == "moe":
+        # the routing itself, where bf16 rounding does not move the router's
+        # input: one fp32 forward, one process against the mesh
+        cfg32 = cfg.with_(dtype="float32")
+        whole = tf.init_params(torch.Generator(device="cuda").manual_seed(0), cfg32, "cuda")
+        with torch.no_grad():
+            if rank == 0:
+                with Routes() as one32:
+                    tf.forward(whole, batch, cfg32)
+            placed = shd.place(whole, mesh)
+            del whole
+            with compute_mesh(mesh), Routes() as tp32:
+                tf.forward(placed, batch, cfg32)
+        out["routes_fp32"] = _leaf_digest(torch.cat([i.reshape(-1) for _, i in tp32.calls]))
+        if rank == 0:
+            differ, clear, tokens = route_differences(torch, tp32.calls, one32.calls,
+                                                      cfg.top_k)
+            out["route_fp32_vs_one_process"] = {"differ": differ, "clear": clear,
+                                                "tokens": tokens}
+    marks.append(("end", time.perf_counter()))
+    out["seconds"] = {b[0]: round(b[1] - a[1], 1) for a, b in zip(marks, marks[1:])}
+    with open(f"{out_prefix}.{rank}.json", "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def check_tensor_parallel(torch, errors, smi):
+    """Phase 13: 13a (qwen1.5-4b, (2, 2)) and 13b (granite-moe-3b, (1, 2))
+    under torchrun, this script re-entering itself as each rank with
+    `--tp-rank`; then 13c: the checkpoint 13a wrote on (2, 2), which its
+    ranks restored onto (4, 1), restored onto this one process, every leaf
+    bit-identical."""
+    import shutil
+    t0 = time.perf_counter()
+    root = os.path.join(ROOT, "build", "chip_smoke_tp")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    res = {}
+    for case, (arch, shape, dtype) in TP_CASES.items():
+        t1 = time.perf_counter()
+        n = shape[0] * shape[1]
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(n),
+               "--master-addr", "127.0.0.1", "--master-port", str(_free_port()), SCRIPT,
+               "--tp-rank", case, os.path.join(root, case)]
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode != 0:
+            # the failing ranks' tracebacks, not torchrun's summary
+            lines = [ln for ln in proc.stderr.splitlines() if ln.startswith("[rank")]
+            errors.append(f"13 {case}: exit {proc.returncode}: "
+                          + "\n".join(lines[-60:] or proc.stderr.splitlines()[-60:]))
+            continue
+        ranks = []
+        for r in range(n):
+            with open(os.path.join(root, f"{case}.{r}.json")) as f:
+                ranks.append(json.load(f))
+        r0, one = ranks[0], ranks[0]["one_process"]
+        bars = TP_BARS[dtype]
+        ratio = max(r["state_bytes"] for r in ranks) / one["state_bytes"]
+        agree = [r["agree"] for r in ranks]
+        res[case] = {"ranks": ranks, "seconds": time.perf_counter() - t1, "state_ratio": ratio}
+        tag = "13a" if case == "dense" else "13b"
+        if shape[0] > 1 and not all(all(a) for a in agree):
+            errors.append(f"{tag}: data replicas differ after a step: {agree}")
+        if not all(r["rerun_equal"] for r in ranks):
+            errors.append(f"{tag}: a second run of the {TP_STEPS} steps gave other bits")
+        if ratio > TP_STATE_BAR:
+            errors.append(f"{tag}: a rank's state is {ratio:.3f} of one process's")
+        if r0["loss_rel"] > bars["loss"] or r0["params_rel"] > bars["params"] or (
+                bars["grad"] is not None and r0["grad_worst"][0] > bars["grad"]):
+            errors.append(f"{tag}: against one process loss rel {r0['loss_rel']:.3e}, worst "
+                          f"gradient {r0['grad_worst']}, parameters rel L2 "
+                          f"{r0['params_rel']:.3e} (bars {bars})")
+        if case == "moe":
+            rv = r0["route_fp32_vs_one_process"]
+            same = {r["routes"] for r in ranks}, {r["routes_fp32"] for r in ranks}
+            if len(same[0]) != 1 or len(same[1]) != 1 or rv["clear"]:
+                errors.append(f"13b: expert sets differ between the model ranks (bf16 "
+                              f"{len(same[0])}, fp32 {len(same[1])} digests) or, in fp32, from "
+                              f"one process where the router's gap exceeds {ROUTE_GAP}: {rv}")
+        step_ms = [round(v, 1) for r in ranks for v in r["step_ms"]]
+        print(f"tp {tag}: {arch} full width, {TP_LAYERS} layers, {dtype}, batch {TP_BATCH} x "
+              f"{TP_SEQ}, mesh {shape} ({n} ranks on cuda:0, {r0['backend']}): state per rank "
+              f"{[r['state_bytes'] for r in ranks]} B = {ratio:.3f} of one process's "
+              f"{one['state_bytes']} B; peak allocated per rank "
+              f"{[round(r['peak_bytes'] / 2**30, 2) for r in ranks]} GiB (one process "
+              f"{one['peak_bytes'] / 2**30:.2f} GiB alone); ms per step {step_ms} against one "
+              f"process's {one['ms']:.1f} [{smi}]")
+        print(f"tp {tag}: against one process: loss rel {r0['loss_rel']:.3e}, worst gradient "
+              f"leaf {r0['grad_worst'][0]:.3e} at {r0['grad_worst'][1]}, parameters after "
+              f"step 1 rel L2 {r0['params_rel']:.3e} (worst leaf {r0['params_worst'][0]:.3e} "
+              f"at {r0['params_worst'][1]}; bars {bars}); losses {r0['losses']}, rerun "
+              f"{r0['rerun_losses']} bit-identical {all(r['rerun_equal'] for r in ranks)}; data "
+              f"replicas bit-identical after each step {agree}; {res[case]['seconds']:.1f} s "
+              f"(rank 0: {r0['seconds']})")
+        if case == "moe":
+            print(f"tp 13b: expert sets equal on the model ranks, bf16 "
+                  f"{len({r['routes'] for r in ranks}) == 1}, fp32 "
+                  f"{len({r['routes_fp32'] for r in ranks}) == 1}; against one process (tokens "
+                  f"whose set differs, of them with the router's k-th/(k+1)-th gap above "
+                  f"{ROUTE_GAP}, tokens routed) bf16 {r0['route_vs_one_process']} (the "
+                  f"row-parallel halves are rounded to bf16 before they are added, which moves "
+                  f"the router's input), fp32 forward {r0['route_fp32_vs_one_process']}")
+    if "dense" in res:
+        ranks = res["dense"]["ranks"]
+        t1 = time.perf_counter()
+        final = os.path.join(root, "dense", f"step_{TP_STEPS:08d}")
+        from repro_torch.train import checkpoint as ckpt
+        restored = ckpt.restore(os.path.join(root, "dense"), TP_STEPS,
+                                _tp_template(os.path.join(final, "manifest.json"), "cpu"))
+        from repro_torch.train.tree import keystr, tree_leaves_with_path
+        mine = {keystr(p): _leaf_digest(x) for p, x in tree_leaves_with_path(restored["params"])}
+        del restored
+        equal41 = all(r["restore_41_equal"] for r in ranks)
+        one_equal = mine == ranks[0]["digests"]
+        res["restore"] = {"equal_41": equal41, "one_process_equal": one_equal,
+                          "seconds": time.perf_counter() - t1}
+        if not (equal41 and one_equal):
+            errors.append(f"13c: restored onto (4, 1) equal {equal41}, onto one process equal "
+                          f"{one_equal}")
+        print(f"tp 13c: 13a's parameters saved on (2, 2) ({ranks[0]['save_s']:.1f} s, rank 0 "
+              f"writing the gathered leaves), restored onto (4, 1) (every rank's shards "
+              f"bit-identical {equal41}, {ranks[0]['restore_s']:.1f} s) and onto one process "
+              f"(every leaf's digest equal {one_equal}, {res['restore']['seconds']:.1f} s)")
+    shutil.rmtree(root, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t0
+    return res
 
 
 def main() -> None:
@@ -3328,6 +3740,14 @@ def main() -> None:
             fail(f"spike_matmul differs from the k-ascending sum at {failed}")
         print("sweep: every spike-matmul geometry bit-identical to the k-ascending sum; "
               "every int4 geometry within its bar of the plain version")
+        return
+    if "--phase13" in sys.argv[1:]:
+        errors = []
+        tensor_parallel = check_tensor_parallel(torch, errors, smi_line)
+        print(f"phase 13 tensor parallel: {len(errors)} errors in "
+              f"{tensor_parallel['seconds']:.1f} s [{smi_line}]")
+        if errors:
+            fail("; ".join(errors))
         return
     if "--phase12" in sys.argv[1:]:
         errors = []
@@ -3564,6 +3984,14 @@ def main() -> None:
     if errors:
         fail("; ".join(errors))
 
+    # 13. tensor parallelism
+    torch.cuda.empty_cache()
+    tensor_parallel = check_tensor_parallel(torch, errors, smi_line)
+    print(f"phase 13 tensor parallel: {len(errors)} errors in "
+          f"{tensor_parallel['seconds']:.1f} s [{smi_line}; every rank on one card]")
+    if errors:
+        fail("; ".join(errors))
+
     csrc = "src/repro_torch/kernels/{}/csrc/{}.cu"
     sources = {"spike_matmul_mapped": csrc.format("spike_conv", "spike_matmul_mapped"),
                "lif_epilogue_scan": csrc.format("lif_step", "lif_epilogue_scan"),
@@ -3622,14 +4050,15 @@ def main() -> None:
                    "launch_floor_ms": floor_ms,
                    "serve": served, "unfused": unfused, "train": trained, "lm": lm,
                    "precision": precision, "family": family, "fleet": fleet,
-                   "lm_train": lm_train, "distribution": distribution}, f,
+                   "lm_train": lm_train, "distribution": distribution,
+                   "tensor_parallel": tensor_parallel}, f,
                   indent=1,
                   default=str)
     if any(math.isnan(k["ms"]) for k in kernels):
         fail("a kernel time is NaN")
     if any(k["launches"] == 0 for k in kernels):
         fail(f"a kernel was not launched on its main path: {kernels}")
-    print(f"phases 1-12 in {time.perf_counter() - t_start:.1f} s")
+    print(f"phases 1-13 in {time.perf_counter() - t_start:.1f} s")
     print(smi_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -3639,5 +4068,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--train-rank"]:
         train_rank(sys.argv[2], sys.argv[3:])
+    elif sys.argv[1:2] == ["--tp-rank"]:
+        tp_rank(sys.argv[2], sys.argv[3])
     else:
         main()

@@ -1,5 +1,5 @@
 """Deterministic, prefetching data pipeline: the JAX package's
-data/pipeline.py without the mesh.
+data/pipeline.py.
 
 Batches are pure functions of (seed, step) (see synthetic.py), generated on
 the host. Because generation is stateless, a restart reproduces the exact
@@ -8,12 +8,16 @@ needed.
 
 A small background thread prefetches: it makes the next batches (in page-
 locked memory when they go to the card) while the device computes, and the
-consumer copies each onto ``device`` with ``non_blocking=True``. Here
-``device`` names the one target, and without one a batch stays where
-``make_batch`` put it. Data-parallel training needs no placement: every
-rank makes the same global batch and its train step keeps its own rows
-(`train.train_step`). The reference's placement onto a mesh (``mesh`` /
-``batch_spec``) waits for the tensor-parallel slice (ROADMAP, queue 1).
+consumer places each one. With ``mesh`` and ``batch_spec`` (the
+reference's arguments: a `dist.sharding.PartitionSpec` for every leaf) on
+a `launch.mesh.make_process_mesh` mesh, a batch becomes DTensors of that
+layout on the mesh: this rank holds the rows its data coordinate gives
+(what the reference's ``NamedSharding`` gives the device at that
+coordinate), replicated over ``'model'``, on its device; the train step
+takes them as this rank's rows. The data-parallel step on a ``(world,
+1)`` mesh (`launch.mesh.make_host_mesh`) takes the global batch instead,
+from a pipeline with a ``device``. Without a mesh, ``device`` names the
+one target, and without either a batch stays where ``make_batch`` put it.
 """
 from __future__ import annotations
 
@@ -28,11 +32,22 @@ from ..train.tree import tree_map
 
 
 class DataPipeline:
-    def __init__(self, make_batch: Callable[[int], Dict], device=None, prefetch: int = 2):
-        """make_batch: step -> host batch tree (tensors). ``device``: where
-        batches go (None: left where they are made)."""
+    def __init__(self, make_batch: Callable[[int], Dict], mesh=None, batch_spec=None,
+                 prefetch: int = 2, device=None):
+        """make_batch: step -> host batch tree (tensors). ``mesh`` /
+        ``batch_spec``: where batches go on a process-group mesh (module
+        docstring); ``device``: where they go without one (None: left where
+        they are made)."""
+        if mesh is not None and (device is not None
+                                 or getattr(mesh, "device_mesh", None) is None):
+            raise ValueError("a mesh places each rank's rows on its own device: give a "
+                             "make_process_mesh mesh and no device (a data-parallel step "
+                             "takes the global batch: give a device)")
         self.make_batch = make_batch
-        self.device = None if device is None else resolve_device(device)
+        self.mesh = mesh
+        self.batch_spec = batch_spec
+        self.device = mesh.device if mesh is not None else (
+            None if device is None else resolve_device(device))
         self.prefetch = prefetch
 
     def _host(self, step: int) -> Dict:
@@ -44,7 +59,12 @@ class DataPipeline:
     def _place(self, batch: Dict) -> Dict:
         if self.device is None:
             return batch
-        return tree_map(lambda x: x.to(self.device, non_blocking=True), batch)
+        batch = tree_map(lambda x: x.to(self.device, non_blocking=True), batch)
+        if self.mesh is None:
+            return batch
+        from ..dist.sharding import PartitionSpec, _from_full, to_placements
+        placements = to_placements(self.batch_spec or PartitionSpec(), self.mesh.device_mesh)
+        return tree_map(lambda x: _from_full(x, self.mesh.device_mesh, placements), batch)
 
     def __call__(self, start_step: int = 0) -> Iterator[Tuple[int, Dict]]:
         """(step, batch) from ``start_step`` on, in order, until the

@@ -4,7 +4,13 @@ Model and training code ask `current_mesh()` whether to split work over a
 mesh; launch code installs one for a scope with `compute_mesh(mesh)`.
 Without an installed mesh everything runs on one device, which is what the
 tests run under. The mesh may be either kind of `launch.mesh`; each
-consumer checks which kind it needs.
+consumer checks which kind it needs (`dist.tensor_parallel.tp_axis`: a
+process-group mesh with more than one ``'model'`` rank).
+
+The mesh is a context variable, so code that autograd runs on its own
+device thread (a checkpointed period recomputed in the backward on the
+card) does not see it: the tensor-parallel blocks take their axis as an
+argument instead.
 """
 from __future__ import annotations
 

@@ -32,12 +32,22 @@ Specs are the port's `PartitionSpec`: a tuple with one entry per dim
 for replicated; a one-name tuple entry reads as the bare name, as JAX
 normalizes it, so ``tuple(spec)`` equals ``tuple`` of the JAX package's
 spec for the same rule. `to_placements` maps one onto a
-``torch.distributed`` ``DeviceMesh`` as DTensor placements; the
-tensor-parallel slice applies it.
+``torch.distributed`` ``DeviceMesh`` as DTensor placements.
+
+Applying them (a `launch.mesh.make_process_mesh` mesh): `place` turns a
+parameter tree, or a state tree that mirrors it, into DTensors on the
+mesh's ``DeviceMesh``, each leaf this rank's shard of its `param_spec`;
+`placements` gives the same layout as a tree of placements (what
+``make_train_step(grad_shardings=)`` and ``checkpoint.restore(shardings=)``
+take); `full_tensor` and `gather` undo it (a collective on every rank);
+`shard_cotangents` holds each gradient to its parameter's layout. The
+model computes on the local shards (`dist.tensor_parallel`).
 """
 from __future__ import annotations
 
 from typing import Sequence, Tuple
+
+import torch
 
 from ..train.tree import keystr, tree_leaves_with_path, tree_map, tree_map_with_path
 from .context import current_mesh
@@ -142,18 +152,33 @@ def param_specs(shapes, mesh, fsdp_experts: bool = False):
 
 
 def shard_cotangents(tree):
-    """The identity: the port lays out nothing over a ``'model'`` axis yet.
+    """Identity on the values; the gradient of each leaf is held to its
+    parameter's layout.
 
-    Under a mesh whose ``'model'`` axis is larger than 1 the reference
-    constrains each cotangent to its parameter's layout; that waits for the
-    tensor-parallel slice, so this raises there rather than silently
-    keeping every cotangent replicated."""
+    Under a mesh whose ``'model'`` axis is larger than 1, each DTensor leaf
+    passes through an identity whose backward redistributes the arriving
+    cotangent to the leaf's placements (gradients that come back through
+    ``to_local`` already have them, so this is then a check that costs
+    nothing). Plain tensors, and any tree without such a mesh, pass as they
+    are: the reference's constraint is a GSPMD layout hint."""
+    from torch.distributed.tensor import DTensor
     mesh = current_mesh()
-    if mesh is not None and _axis_size(mesh, "model") > 1:
-        raise NotImplementedError(
-            "shard_cotangents over a 'model' axis > 1 arrives with the tensor-parallel "
-            "slice (ROADMAP, queue 1)")
-    return tree
+    if mesh is None or _axis_size(mesh, "model") <= 1:
+        return tree
+    return tree_map(lambda x: _HoldLayout.apply(x) if isinstance(x, DTensor) else x, tree)
+
+
+class _HoldLayout(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.placements = tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) == ctx.placements:
+            return g
+        return _from_full(full_tensor(g), g.device_mesh, ctx.placements)
 
 
 def zero1_opt_specs(opt_shapes, param_part, mesh):
@@ -243,3 +268,71 @@ def to_placements(spec: PartitionSpec, device_mesh) -> list:
                 if e == name or (isinstance(e, tuple) and name in e)]
         out.append(Shard(dims[0]) if dims else Replicate())
     return out
+
+
+# ---------------------------------------------------------------------------
+# Applying the rules: DTensor leaves on a process-group mesh
+# ---------------------------------------------------------------------------
+
+def _from_full(full, device_mesh, placements):
+    """``full`` (the same on every rank) as a DTensor: this rank's slice of
+    each sharded dim, a copy of its own."""
+    from torch.distributed.tensor import DTensor, Shard
+    local = full
+    for i, pl in enumerate(placements):
+        if isinstance(pl, Shard):
+            n = device_mesh.size(i)
+            r = device_mesh.get_local_rank(i)
+            size = local.shape[pl.dim] // n
+            local = local.narrow(pl.dim, r * size, size)
+    return DTensor.from_local(local.contiguous().clone(), device_mesh, list(placements),
+                              run_check=False, shape=full.shape, stride=full.stride())
+
+
+def _leaf_placements(path, leaf, mesh, fsdp_experts):
+    if not leaf.shape:
+        return None                      # 0-d counters stay plain tensors
+    return tuple(to_placements(param_spec(path, leaf, mesh, fsdp_experts), mesh.device_mesh))
+
+
+def placements(tree, mesh, fsdp_experts: bool = False):
+    """Per leaf, the DTensor placements of its `param_spec` on ``mesh``'s
+    ``DeviceMesh`` (one per mesh dim, ``('data', 'model')``); None for 0-d
+    leaves. ``tree`` may be a parameter tree or one that mirrors it (an
+    optimizer state: ``['opt']['m'][...]`` takes the parameter's rule)."""
+    return tree_map_with_path(lambda path, leaf: _leaf_placements(path, leaf, mesh,
+                                                                  fsdp_experts), tree)
+
+
+def place(tree, mesh, fsdp_experts: bool = False):
+    """``tree`` (whole tensors, the same on every rank) as DTensors laid out
+    by `placements`; 0-d leaves stay plain tensors."""
+    return tree_map(lambda leaf, pl: leaf if pl is None
+                    else _from_full(leaf, mesh.device_mesh, pl),
+                    tree, placements(tree, mesh, fsdp_experts))
+
+
+def full_tensor(x):
+    """The whole tensor of a DTensor leaf, gathered in mesh order over each
+    mesh dim it is sharded on (one all-reduce per dim, exact; a collective
+    on every rank of those groups); a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor, Shard
+    from .tensor_parallel import all_gather
+    if not isinstance(x, DTensor):
+        return x
+    t = x.to_local()
+    for name, pl in zip(x.device_mesh.mesh_dim_names, x.placements):
+        if isinstance(pl, Shard):
+            t = all_gather(t, pl.dim, x.device_mesh.get_group(name))
+    return t
+
+
+def gather(tree):
+    """`full_tensor` of every leaf."""
+    return tree_map(full_tensor, tree)
+
+
+def local(tree):
+    """Each DTensor leaf's local shard (``to_local``); plain tensors pass."""
+    from torch.distributed.tensor import DTensor
+    return tree_map(lambda x: x.to_local() if isinstance(x, DTensor) else x, tree)

@@ -18,15 +18,23 @@ over its axes. PyTorch splits that in two, and so does the port:
    from an explicit device list may put several shards on one card
    (``DataMesh(["cuda:0", "cuda:0"])``): the numbers are the same, but the
    shards then share the card's time.
-2. **Process-group data mesh** (`ProcessMesh`, `make_host_mesh`;
-   training). The counterpart of ``make_host_mesh()`` +
-   ``shard_map_compressed_step``: one process per rank, joined by
-   ``torch.distributed`` (started from ``torchrun``'s environment when
-   ``WORLD_SIZE`` is set, world size 1 otherwise), with axes ``('data',
-   'model') == (world, 1)``. NCCL carries CUDA tensors and gloo CPU
-   tensors; NCCL refuses two ranks on one card, so ranks that share a card
-   use gloo for their CUDA tensors, which stages every reduction through
-   the host.
+2. **Process-group mesh** (`ProcessMesh`; training). One process per
+   rank, joined by ``torch.distributed`` (started from ``torchrun``'s
+   environment when ``WORLD_SIZE`` is set, world size 1 otherwise), with
+   axes ``('data', 'model')``. `make_host_mesh` is the counterpart of the
+   reference's ``make_host_mesh()`` (+ ``shard_map_compressed_step``):
+   ``(world, 1)``, data-parallel only. `make_process_mesh(data, model)`
+   is the counterpart of ``jax.make_mesh((data, model), ('data',
+   'model'))``: rank r sits at ``(r // model, r % model)``, as
+   ``jax.make_mesh`` orders devices, and the mesh carries a
+   ``torch.distributed`` ``DeviceMesh`` with those dim names (DTensor
+   layouts: `dist.sharding.place`) and one process group per axis
+   (``group('data')``: the ranks of this rank's model index, over which
+   gradients are averaged; ``group('model')``: the ranks of its data
+   index, over which tensor-parallel activations are reduced). NCCL
+   carries CUDA tensors and gloo CPU tensors; NCCL refuses two ranks on
+   one card, so ranks that share a card use gloo for their CUDA tensors,
+   which stages every reduction through the host.
 
 Both expose ``axis_names`` and a ``shape`` mapping, so the sharding rules
 (`dist.sharding`) take either. The reference's ``make_production_mesh``
@@ -89,26 +97,43 @@ def make_data_mesh(n: int = 0, device="cuda") -> DataMesh:
 
 
 class ProcessMesh:
-    """``('data', 'model') == (world, 1)`` over a ``torch.distributed`` group.
+    """``('data', 'model')`` over a ``torch.distributed`` group.
 
-    ``device`` is this rank's device, ``backend`` the group's. The data
-    axis is the default group; the model axis has one rank, so nothing
-    crosses it.
+    ``device`` is this rank's device, ``backend`` the group's, ``rank`` its
+    rank in the default group and ``data_rank`` / ``model_rank`` its
+    coordinates on the mesh. Built by `make_host_mesh` it is ``(world,
+    1)``: the data axis is the default group and nothing crosses the model
+    axis. Built by `make_process_mesh` it carries ``device_mesh`` (a
+    ``DeviceMesh`` named ``('data', 'model')``) and a process group per
+    axis.
     """
 
     axis_names = ("data", "model")
 
-    def __init__(self, device: torch.device, owns_group: bool = False):
+    def __init__(self, device: torch.device, owns_group: bool = False, model: int = 1):
+        world = dist.get_world_size()
+        if model < 1 or world % model:
+            raise ValueError(f"a model axis of {model} does not divide {world} ranks")
         self.device = device
         self.backend = dist.get_backend()
         self.rank = dist.get_rank()
-        self.shape: Dict[str, int] = {"data": dist.get_world_size(), "model": 1}
+        self.data_rank, self.model_rank = divmod(self.rank, model)
+        self.shape: Dict[str, int] = {"data": world // model, "model": model}
         self._owns_group = owns_group
+        self.device_mesh = None
+        self._groups = {"data": dist.group.WORLD}
+        if model > 1:
+            from torch.distributed.device_mesh import DeviceMesh
+            self.device_mesh = DeviceMesh(device.type, torch.arange(world).reshape(
+                world // model, model), mesh_dim_names=self.axis_names)
+            self._groups = {a: self.device_mesh.get_group(a) for a in self.axis_names}
 
     def group(self, axis: str = "data"):
-        if axis != "data":
-            raise ValueError(f"only the 'data' axis has a process group, not {axis!r}")
-        return dist.group.WORLD
+        """The process group of this rank's line along ``axis``."""
+        if axis not in self._groups:
+            raise ValueError(f"this mesh has no process group for the {axis!r} axis "
+                             f"(a model axis of 1 has none; see make_process_mesh)")
+        return self._groups[axis]
 
     def close(self) -> None:
         """Destroy the process group if `make_host_mesh` started it."""
@@ -146,3 +171,19 @@ def make_host_mesh(device="cuda") -> ProcessMesh:
         else:
             dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
     return ProcessMesh(dev, owns_group=not running)
+
+
+def make_process_mesh(data: int, model: int, device="cuda") -> ProcessMesh:
+    """A ``('data', 'model') == (data, model)`` mesh over the default
+    process group (started as in `make_host_mesh` when none is running),
+    which must have ``data * model`` ranks; rank r at ``(r // model, r %
+    model)``. Every rank calls it: building the axes' groups is
+    collective."""
+    mesh = make_host_mesh(device)
+    world = mesh.shape["data"]
+    if data * model != world:
+        mesh.close()
+        raise ValueError(f"a ({data}, {model}) mesh needs {data * model} ranks, not {world}")
+    if model == 1:
+        return mesh
+    return ProcessMesh(mesh.device, owns_group=mesh._owns_group, model=model)

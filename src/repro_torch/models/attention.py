@@ -12,6 +12,10 @@ The decode path takes a scalar or a per-row ``[B]`` position vector and an
 **in place** (a cache at full width is gigabytes; a copy per token would
 double the step's traffic) and returns the same dict. Callers that need the
 old state keep a separate tensor (`serve.runners.lm._LMSession._fresh`).
+
+`attention_block_tp` is the training/prefill block on one model rank of
+a tensor-parallel mesh (`dist.tensor_parallel`): heads split over the
+ranks.
 """
 from __future__ import annotations
 
@@ -131,6 +135,58 @@ def attention_block(
     out = chunked_causal_attention(q, k, v, window=window, q_chunk=q_chunk,
                                    kv_chunk=kv_chunk, f32_streams=f32_streams)
     return out.reshape(b, s, n_heads * head_dim) @ p["wo"]
+
+
+def _kv_heads_tp(tp, p, x, name, n_heads, n_kv_heads, head_dim):
+    """This rank's KV heads for its query heads ``[B, S, kv, hd]``, and
+    how many it holds. KV heads that split over the ranks come from the
+    column shard; fewer KV heads than ranks (MQA) are projected whole on
+    every rank and the one this rank's query heads read is taken (its
+    gradient summed over the ranks that read it)."""
+    b, s, _ = x.shape
+    bias = p.get("b" + name[1])
+    if tp.divides(n_kv_heads):
+        y = tp.copy(x) @ tp.param(p[name], -1)
+        if bias is not None:
+            y = y + tp.param(bias, -1)
+        return y.reshape(b, s, n_kv_heads // tp.size, head_dim)
+    y = x @ tp.param(p[name], None)
+    if bias is not None:
+        y = y + tp.param(bias, None)
+    lh, g = n_heads // tp.size, n_heads // n_kv_heads
+    first = tp.rank * lh // g
+    return tp.copy(y).reshape(b, s, n_kv_heads, head_dim)[:, :, first:first + 1]
+
+
+def attention_block_tp(
+    tp, p: Dict, x: torch.Tensor, *,
+    n_heads: int, n_kv_heads: int, head_dim: int,
+    rope_theta: float, window: int = 0,
+    q_chunk: int = 512, kv_chunk: int = 1024, f32_streams: bool = False,
+) -> torch.Tensor:
+    """`attention_block` on one model rank: ``p`` holds `TPLeaf` s, ``x``
+    is replicated. ``wq`` (and ``wk`` / ``wv`` where the KV heads divide)
+    column-parallel, so each rank computes its ``n_heads / tp`` heads
+    exactly as one process does; ``wo`` row-parallel, its partial sums
+    all-reduced. Where the query heads do not divide, or one rank's heads
+    would read more than one shared KV head, every rank runs the whole
+    block on the gathered weights."""
+    kw = dict(window=window, q_chunk=q_chunk, kv_chunk=kv_chunk, f32_streams=f32_streams)
+    lh, g = n_heads // tp.size, n_heads // n_kv_heads
+    if not tp.divides(n_heads) or not (tp.divides(n_kv_heads) or g % lh == 0):
+        return attention_block(tp.full(p), x, n_heads=n_heads, n_kv_heads=n_kv_heads,
+                               head_dim=head_dim, rope_theta=rope_theta, **kw)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    q = tp.copy(x) @ tp.param(p["wq"], -1)
+    if "bq" in p:
+        q = q + tp.param(p["bq"], -1)
+    q = apply_rope(q.reshape(b, s, lh, head_dim), positions, rope_theta)
+    k = apply_rope(_kv_heads_tp(tp, p, x, "wk", n_heads, n_kv_heads, head_dim), positions,
+                   rope_theta)
+    v = _kv_heads_tp(tp, p, x, "wv", n_heads, n_kv_heads, head_dim)
+    out = chunked_causal_attention(q, k, v, **kw)
+    return tp.reduce(out.reshape(b, s, lh * head_dim) @ tp.param(p["wo"], -2))
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,8 @@ The JAX package's models/layers.py in PyTorch. Initializers draw from an
 explicit `torch.Generator` and take a leading shape ``lead`` so that a
 stack of per-layer weights ([n_periods, ...]) is drawn in one call. Every
 helper that allocates takes a ``device``, the card unless the caller asks
-for the CPU (`device.resolve_device`).
+for the CPU (`device.resolve_device`). `mlp_apply_tp` is the MLP on a
+tensor-parallel rank's shards (`dist.tensor_parallel`).
 """
 from __future__ import annotations
 
@@ -112,3 +113,26 @@ def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, act: str) -> torch.Te
     else:
         raise ValueError(act)
     return h @ p["w_out"]
+
+
+def mlp_apply_tp(tp, p: Dict, x: torch.Tensor, act: str) -> torch.Tensor:
+    """`mlp_apply` on one model rank: ``p`` holds `TPLeaf` s and ``x`` is
+    replicated. Column-parallel ``w_in`` / ``w_gate`` (d_ff sharded),
+    row-parallel ``w_out``, the partial sums all-reduced; the output is
+    replicated. Where d_ff does not divide over the ranks every rank runs
+    the whole MLP on the gathered weights."""
+    if not tp.divides(tp.extent(p["w_out"], -2)):           # d_ff
+        return mlp_apply(tp.full(p), x, act)
+    xc = tp.copy(x)
+    local = {k: tp.param(v, -2 if k == "w_out" else -1) for k, v in p.items()}
+    h = xc @ local["w_in"]
+    if act in ("swiglu", "geglu"):
+        g = xc @ local["w_gate"]
+        h = (F.silu(g) if act == "swiglu" else _gelu(g)) * h
+    elif act == "gelu":
+        h = _gelu(h)
+    elif act == "relu2":
+        h = torch.square(F.relu(h))
+    else:
+        raise ValueError(act)
+    return tp.reduce(h @ local["w_out"])

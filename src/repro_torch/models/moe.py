@@ -32,10 +32,18 @@ blocks of ``x`` is routed on its own, as the reference's ``shard_map`` over
 the data axes routes each shard's rows: capacity comes from the *local*
 row count, so which tokens drop depends on the block. The aux loss is the
 mean of the blocks' (the reference's ``pmean``). The blocks run on ``x``'s
-device: in JAX only the MoE is under ``shard_map``. ``fsdp_experts`` is a
-layout (the reference's per-layer gather of 'data'-sharded expert stacks)
-and changes no number; laying experts out over the mesh waits for the
-tensor-parallel slice, so it is accepted and changes nothing here.
+device: in JAX only the MoE is under ``shard_map``.
+
+On one model rank of a tensor-parallel mesh (`dist.tensor_parallel`,
+``p`` holding `TPLeaf` s) the router's column shards give logits that are
+gathered before the stable top-k, so routing and capacity are the same on
+every model rank; the experts' ``w_in`` / ``w_gate`` shard d_ff and
+``w_out`` is row-parallel, and the combined partial sums are all-reduced.
+Each data rank routes its own rows, as the reference's ``shard_map`` over
+the data axes does: the train step hands each rank its rows. With
+``fsdp_experts`` the expert stacks are also split over ``'data'`` and
+gathered per layer (their gradient averaged over the data ranks and
+scattered back); without a mesh it is a layout and changes no number.
 """
 from __future__ import annotations
 
@@ -47,8 +55,9 @@ import torch.nn.functional as F
 from ..core.tiling import round_up
 from ..device import resolve_device
 from ..dist.context import current_mesh
+from ..dist.tensor_parallel import tp_axis
 from ..launch.mesh import DataMesh
-from .layers import _gelu, dense_init, mlp_apply, mlp_init
+from .layers import _gelu, dense_init, mlp_apply, mlp_apply_tp, mlp_init
 
 NEG_INF = -1e30
 
@@ -71,13 +80,19 @@ def moe_init(gen: torch.Generator, d: int, n_experts: int, d_ff_e: int, act: str
 
 def moe_apply(p: Dict, x: torch.Tensor, *, top_k: int, act: str, n_experts: int,
               capacity_factor: float = 1.25, n_experts_padded: int = 0,
-              fsdp_experts: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+              fsdp_experts: bool = False, tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, d] -> (y [B, S, d], aux_loss scalar). Under an in-process
     data mesh the rows are routed block by block (module docstring).
-    ``fsdp_experts`` steers the reference's mesh layout and changes nothing
-    here."""
+    ``tp``: this model rank's `TPAxis` (default: the ambient mesh's), with
+    ``p`` of `TPLeaf` s; given explicitly where the call may run outside
+    the caller's context (a checkpointed period's recomputation runs on
+    autograd's device thread). ``fsdp_experts`` is the placed tree's
+    layout (`dist.sharding.place`) and changes no number here."""
     kw = dict(top_k=top_k, act=act, n_experts=max(n_experts_padded, n_experts),
               n_valid=n_experts, capacity_factor=capacity_factor)
+    tp = tp if tp is not None else tp_axis()
+    if tp is not None:
+        return _moe_core(p, x, tp=tp, **kw)
     ndp = _data_blocks(x.shape[0])
     if ndp > 1:
         outs = [_moe_core(p, xb, **kw) for xb in x.chunk(ndp)]
@@ -109,7 +124,23 @@ def _top_k(logits: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _moe_core(p: Dict, x: torch.Tensor, *, top_k: int, act: str, n_experts: int,
-              n_valid: int, capacity_factor: float) -> Tuple[torch.Tensor, torch.Tensor]:
+              n_valid: int, capacity_factor: float, tp=None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One block of rows; ``tp`` (a `TPAxis`, ``p`` of `TPLeaf` s): on one
+    model rank, with d_ff split where it divides (module docstring)."""
+    if tp is not None:
+        experts, split = _experts_tp(tp, p["experts"])
+        if tp.divides(n_experts):
+            router = lambda xt: tp.gather(tp.copy(xt) @ tp.param(p["w_router"], -1), -1)  # noqa: E731
+        else:
+            router = lambda xt: xt @ tp.param(p["w_router"], None)  # noqa: E731
+        # rank-specific uses of replicated values (their gradients summed
+        # over the ranks) and the partial sums' reduction, where d_ff splits
+        part = (tp.copy, tp.reduce) if split else (lambda t: t, lambda t: t)
+    else:
+        experts = p["experts"]
+        router = lambda xt: xt @ p["w_router"]  # noqa: E731
+        part = (lambda t: t, lambda t: t)
     b, s, d = x.shape
     dev = x.device
     xt = x.reshape(-1, d)
@@ -118,7 +149,7 @@ def _moe_core(p: Dict, x: torch.Tensor, *, top_k: int, act: str, n_experts: int,
     # plain Python float arithmetic, as in the reference
     capacity = min(round_up(int(rows / n_valid * capacity_factor) + 1, 8), rows)
 
-    logits = (xt @ p["w_router"]).float()                      # [T, E]
+    logits = router(xt).float()                                # [T, E]
     if n_valid < n_experts:                                    # mask padded experts
         logits = logits.masked_fill(torch.arange(n_experts, device=dev) >= n_valid, NEG_INF)
     gate_vals, idx = _top_k(logits, top_k)                     # [T, k]
@@ -143,7 +174,7 @@ def _moe_core(p: Dict, x: torch.Tensor, *, top_k: int, act: str, n_experts: int,
     xe = xs_pad[offsets[:, None] + slot[None, :]]              # [E, C, d]
     xe = xe * (slot[None, :] < group_sizes[:, None])[..., None].to(xe.dtype)
 
-    experts = p["experts"]
+    xe = part[0](xe)
     h = torch.bmm(xe, experts["w_in"])                         # [E, C, ff]
     if act in ("swiglu", "geglu"):
         hg = torch.bmm(xe, experts["w_gate"])
@@ -156,7 +187,7 @@ def _moe_core(p: Dict, x: torch.Tensor, *, top_k: int, act: str, n_experts: int,
 
     # sorted row i reads oe[expert_i, rank_i] when valid
     out_rows = oe[sorted_expert, rank.clamp(0, capacity - 1)]
-    gate = (weights.reshape(-1)[order] * valid).to(xt.dtype)   # [T*k]
+    gate = part[0]((weights.reshape(-1)[order] * valid).to(xt.dtype))   # [T*k]
     contrib = out_rows.to(xt.dtype) * gate[:, None]
     # each token's k rows in sorted-row order: its experts ascending
     where = torch.empty_like(order)
@@ -165,9 +196,11 @@ def _moe_core(p: Dict, x: torch.Tensor, *, top_k: int, act: str, n_experts: int,
     y = torch.zeros_like(xt)
     for j in range(top_k):
         y = y + per_token[:, j]
+    y = part[1](y)
 
     if "shared" in p:
-        y = y + mlp_apply(p["shared"], xt, act)
+        y = y + (mlp_apply(p["shared"], xt, act) if tp is None
+                 else mlp_apply_tp(tp, p["shared"], xt, act))
 
     # Switch-style load-balancing loss: E * sum_e f_e * p_e
     router_probs = torch.softmax(logits, dim=-1)               # [T, E]
@@ -175,3 +208,12 @@ def _moe_core(p: Dict, x: torch.Tensor, *, top_k: int, act: str, n_experts: int,
     frac_probs = router_probs.mean(0)
     aux = n_experts * torch.sum(frac_tokens / top_k * frac_probs)
     return y.reshape(b, s, d), aux
+
+
+def _experts_tp(tp, experts: Dict) -> Tuple[Dict, bool]:
+    """The expert stacks on one model rank -> (tensors, whether d_ff is
+    split): ``w_in`` / ``w_gate`` column-parallel and ``w_out``
+    row-parallel where the expert d_ff divides, else whole on every rank."""
+    if not tp.divides(tp.extent(experts["w_out"], -2)):     # the expert d_ff
+        return {k: tp.param(v, None) for k, v in experts.items()}, False
+    return {k: tp.param(v, -2 if k == "w_out" else -1) for k, v in experts.items()}, True

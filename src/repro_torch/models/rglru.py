@@ -13,6 +13,7 @@ per-channel, per-step decay. Prefill runs a log-depth prefix scan over
 differently, within 1e-4 on values of order one); decode is the O(1)
 recurrent update. The block follows Griffin: two branches (conv1d ->
 RG-LRU) x (linear -> GeLU), multiplied, then projected back to d_model.
+`rglru_block_tp` runs it on one model rank of a tensor-parallel mesh.
 """
 from __future__ import annotations
 
@@ -52,9 +53,13 @@ def _causal_conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _gates(p: Dict, u: torch.Tensor):
-    r = torch.sigmoid(u @ p["w_a"])
-    i = torch.sigmoid(u @ p["w_i"])
+def _gates(p: Dict, u: torch.Tensor, u_in: torch.Tensor = None):
+    """(a, b) of the recurrence; ``u_in`` (default ``u``) feeds the gate
+    projections, which on a model rank read every channel while ``u``
+    holds this rank's."""
+    u_in = u if u_in is None else u_in
+    r = torch.sigmoid(u_in @ p["w_a"])
+    i = torch.sigmoid(u_in @ p["w_i"])
     a0 = torch.clamp(p["lam"], 1e-4, 1 - 1e-4).float()
     log_a = _C * r.float() * torch.log(a0)                     # [B, S, d_rnn]
     a = torch.exp(log_a)
@@ -65,7 +70,10 @@ def _gates(p: Dict, u: torch.Tensor):
 def rglru_scan(p: Dict, u: torch.Tensor) -> torch.Tensor:
     """Prefix scan of h_t = a_t h_{t-1} + b_t over the sequence, from
     h = 0 (Hillis-Steele: log2(S) doubling steps). u: [B, S, d_rnn]."""
-    a, b = _gates(p, u)
+    return _scan(*_gates(p, u)).to(u.dtype)
+
+
+def _scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     s, step = a.shape[1], 1
     while step < s:
         # (a1, b1) then (a2, b2) composes to (a1 a2, a2 b1 + b2)
@@ -73,7 +81,7 @@ def rglru_scan(p: Dict, u: torch.Tensor) -> torch.Tensor:
         b = torch.cat([b[:, :step], a[:, step:] * b_prev + b[:, step:]], dim=1)
         a = torch.cat([a[:, :step], a[:, step:] * a_prev], dim=1)
         step *= 2
-    return b.to(u.dtype)
+    return b
 
 
 def rglru_block(p: Dict, x: torch.Tensor) -> torch.Tensor:
@@ -82,6 +90,24 @@ def rglru_block(p: Dict, x: torch.Tensor) -> torch.Tensor:
     h = rglru_scan(p, u)
     gate = _gelu(x @ p["w_y"])
     return (h * gate) @ p["w_out"]
+
+
+def rglru_block_tp(tp, p: Dict, x: torch.Tensor) -> torch.Tensor:
+    """`rglru_block` on one model rank (``p`` of `TPLeaf` s, ``x``
+    replicated): the d_rnn channels split over the ranks (``w_x``,
+    ``w_y``, ``w_conv``, ``lam`` and the gates' columns), the conv and the
+    scan per channel on this rank's, the gate projections reading every
+    channel (gathered), ``w_out`` row-parallel and its partial sums
+    all-reduced. Where d_rnn does not divide, the whole block on every
+    rank."""
+    if not tp.divides(tp.extent(p["w_out"], -2)):           # d_rnn
+        return rglru_block(tp.full(p), x)
+    local = {k: tp.param(v, -2 if k == "w_out" else -1) for k, v in p.items()}
+    xc = tp.copy(x)
+    u = _causal_conv1d(xc @ local["w_x"], local["w_conv"])
+    h = _scan(*_gates(local, u, tp.gather(u, -1, partial=True))).to(u.dtype)
+    gate = _gelu(xc @ local["w_y"])
+    return tp.reduce((h * gate) @ local["w_out"])
 
 
 # ---------------------------------------------------------------------------

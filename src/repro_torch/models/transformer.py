@@ -17,10 +17,23 @@ Block kinds:
 
 The vision/audio frontends are stubs: ``batch["frontend_embeds"]`` is
 projected by ``embed.w_front`` and prepended to the token embeddings
-(`models.frontends`). The JAX package's sharding hooks (`_vocab_shard`,
-`_seq_shard`, `shard_cotangents`) lay tensors out over a ``'model'`` axis
-and change no number; they wait for the tensor-parallel slice (ROADMAP,
-queue 1). Data parallelism needs none of them: the MoE routes each data
+(`models.frontends`).
+
+Tensor parallelism: under a ``(data, model)`` process-group mesh with more
+than one model rank (`launch.mesh.make_process_mesh` under
+``compute_mesh``), `forward` and `train_loss` take the placed tree
+(DTensor leaves, `dist.sharding.place`) and run each block on this rank's
+shards (`dist.tensor_parallel`), at the reference's sharding hooks:
+``_embed`` looks tokens up in the vocab shard of ``w_tok`` (rows outside
+it give zeros; the ranks' rows are summed, exactly), under
+`shard_cotangents`; ``_unembed`` keeps the logits sharded over the vocab
+(``_vocab_shard``) and `train_loss` reduces the log-softmax's max, sum of
+exponentials and gold logit over the ranks, so no rank holds a whole
+``[B, S, V]`` float32 tensor; ``_seq_shard`` keeps the residual stream
+split along the sequence at period boundaries and after each
+``attn_mlp`` / ``attn_moe`` block (``cfg.sp_blocks``), gathered where a
+block needs all of it, so each period's checkpointed input is 1/tp the
+size. Data parallelism needs none of them: the MoE routes each data
 shard's rows on its own under an in-process data mesh (`models.moe`), and
 the train step reduces over a process group (`train.train_step`).
 
@@ -46,12 +59,18 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
-from .attention import attention_block, attention_decode, attn_init, init_kv_cache
-from .layers import dense_init, embed_init, mlp_apply, mlp_init, rmsnorm, rmsnorm_init
+from ..dist.sharding import shard_cotangents
+from ..dist.tensor_parallel import TPAxis, tp_axis, unwrap
+from .attention import (attention_block, attention_block_tp, attention_decode, attn_init,
+                        init_kv_cache)
+from .layers import (dense_init, embed_init, mlp_apply, mlp_apply_tp, mlp_init, rmsnorm,
+                     rmsnorm_init)
 from .moe import moe_apply, moe_init
-from .rglru import rglru_block, rglru_block_decode, rglru_init, rglru_init_state
-from .xlstm import (mlstm_block, mlstm_block_decode, mlstm_init, mlstm_init_state,
-                    slstm_block, slstm_block_decode, slstm_init, slstm_init_state)
+from .rglru import (rglru_block, rglru_block_decode, rglru_block_tp, rglru_init,
+                    rglru_init_state)
+from .xlstm import (mlstm_block, mlstm_block_decode, mlstm_block_tp, mlstm_init,
+                    mlstm_init_state, slstm_block, slstm_block_decode, slstm_block_tp,
+                    slstm_init, slstm_init_state)
 
 ATTN_KINDS = ("attn_mlp", "attn_moe", "local_attn")
 
@@ -169,10 +188,12 @@ def _apply_block(kind: str, p: Dict, x: torch.Tensor, cfg: ArchConfig
     raise ValueError(kind)
 
 
-def _moe(p: Dict, x: torch.Tensor, cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+def _moe(p: Dict, x: torch.Tensor, cfg: ArchConfig, tp: Optional[TPAxis] = None
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
     return moe_apply(p, x, top_k=cfg.top_k, act=cfg.mlp_act, n_experts=cfg.n_experts,
                      capacity_factor=cfg.capacity_factor,
-                     n_experts_padded=cfg.n_experts_padded, fsdp_experts=cfg.fsdp_experts)
+                     n_experts_padded=cfg.n_experts_padded, fsdp_experts=cfg.fsdp_experts,
+                     tp=tp)
 
 
 def _embed(params: Dict, batch: Dict, cfg: ArchConfig) -> torch.Tensor:
@@ -197,7 +218,17 @@ def forward(params: Dict, batch: Dict, cfg: ArchConfig) -> Tuple[torch.Tensor, t
     checkpointed (its activations recomputed in the backward), as the
     reference's ``jax.checkpoint(period_fn)``; the recomputation runs the
     same ops on the same inputs, so it reproduces the saved forward exactly,
-    MoE routing included. Under ``no_grad`` (serving) nothing changes."""
+    MoE routing included. Under ``no_grad`` (serving) nothing changes.
+
+    Under a tensor-parallel mesh (module docstring) the logits are a
+    DTensor on the model axis, sharded over the vocab where it divides."""
+    tp = tp_axis()
+    if tp is not None:
+        logits, aux, vocab_sharded = _forward_tp(tp, params, batch, cfg)
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        sub = tp.mesh.device_mesh["model"]
+        return DTensor.from_local(logits, sub, [Shard(2) if vocab_sharded else Replicate()],
+                                  run_check=False), aux
     def period_fn(x, aux, slot_params):
         for si, kind in enumerate(cfg.pattern):
             x, a = _apply_block(kind, slot_params[f"slot{si}"], x, cfg)
@@ -225,16 +256,156 @@ def train_loss(params: Dict, batch: Dict, cfg: ArchConfig, aux_weight: float = 0
     """Next-token cross-entropy (+ MoE load-balance aux), in the reference's
     order: the frontend positions dropped (they carry no labels), fp32
     logits, ``logsumexp - logits[label]`` averaged, plus ``aux_weight * aux``.
-    ``batch["labels"]`` is int64 [B, S_tok], as `token_batch` makes it."""
-    logits, aux = forward(params, batch, cfg)
+    ``batch["labels"]`` is int64 [B, S_tok], as `token_batch` makes it.
+    Under a tensor-parallel mesh the log-softmax runs over the vocab shards
+    (module docstring); the loss is the same on every model rank."""
+    tp = tp_axis()
+    if tp is not None:
+        logits, aux, vocab_sharded = _forward_tp(tp, params, batch, cfg)
+    else:
+        (logits, aux), vocab_sharded = forward(params, batch, cfg), False
     labels = batch["labels"]
     if cfg.frontend:
         logits = logits[:, cfg.n_frontend_tokens:]
     logits = logits.float()
+    if vocab_sharded:
+        return _vocab_parallel_ce(tp, logits, labels) + aux_weight * aux
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.take_along_dim(logits, labels[..., None].long(), dim=-1)[..., 0]
     ce = torch.mean(logz - gold)
     return ce + aux_weight * aux
+
+
+# ===========================================================================
+# Tensor parallelism: the forward on one model rank's shards
+# ===========================================================================
+
+def _apply_block_tp(tp: TPAxis, kind: str, p: Dict, x: torch.Tensor, cfg: ArchConfig
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`_apply_block` on one model rank: ``p`` of `TPLeaf` s, ``x``
+    replicated (the norms run on every rank, on their gathered gains)."""
+    aux = torch.zeros((), device=x.device)
+    h = rmsnorm(x, tp.full(p["norm1"]), cfg.norm_eps)
+    if kind in ATTN_KINDS:
+        x = x + attention_block_tp(
+            tp, p["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.hd, rope_theta=cfg.rope_theta,
+            window=cfg.window if kind == "local_attn" else 0,
+            q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk, f32_streams=cfg.attn_f32_streams)
+        h2 = rmsnorm(x, tp.full(p["norm2"]), cfg.norm_eps)
+        if kind == "attn_moe":
+            y, aux = _moe(p["moe"], h2, cfg, tp)
+            return x + y, aux
+        return x + mlp_apply_tp(tp, p["mlp"], h2, cfg.mlp_act), aux
+    if kind == "rglru":
+        x = x + rglru_block_tp(tp, p["rglru"], h)
+        return x + mlp_apply_tp(tp, p["mlp"], rmsnorm(x, tp.full(p["norm2"]), cfg.norm_eps),
+                                cfg.mlp_act), aux
+    if kind == "mlstm":
+        return x + mlstm_block_tp(tp, p["mlstm"], h, cfg.n_heads, cfg.mlstm_chunk), aux
+    if kind == "slstm":
+        return x + slstm_block_tp(tp, p["slstm"], h, cfg.n_heads), aux
+    raise ValueError(kind)
+
+
+def _embed_tp(tp: TPAxis, params: Dict, batch: Dict, cfg: ArchConfig) -> torch.Tensor:
+    """The token embedding, replicated: a vocab shard looks up its own rows
+    (zeros for the others' tokens) and the ranks' rows are summed, which
+    is exact; a d_model shard's columns are gathered."""
+    w, tokens = params["embed"]["w_tok"], batch["tokens"]
+    if w.dim == -2:
+        rows = w.t.shape[0]
+        idx = tokens - tp.rank * rows
+        inside = (idx >= 0) & (idx < rows)
+        x = tp.reduce(w.t[idx.clamp(0, rows - 1)] * inside[..., None].to(w.t.dtype))
+    elif w.dim == -1:
+        x = tp.gather(w.t[tokens], -1)
+    else:
+        x = w.t[tokens]
+    if cfg.frontend:
+        front = batch["frontend_embeds"].to(x.dtype) @ tp.param(params["embed"]["w_front"],
+                                                                None)
+        x = torch.cat([front, x], dim=1)
+    return x
+
+
+def _unembed_tp(tp: TPAxis, params: Dict, x: torch.Tensor, cfg: ArchConfig
+                ) -> Tuple[torch.Tensor, bool]:
+    """-> (logits, whether they are this rank's vocab shard): sharded over
+    the vocab where it divides (``_vocab_shard``), else whole on every rank."""
+    if cfg.tie_embeddings:
+        w, vocab_dim = params["embed"]["w_tok"], -2
+    else:
+        w, vocab_dim = params["lm_head"]["w"], -1
+    if not tp.divides(cfg.vocab):
+        w = tp.param(w, None)
+        return x @ (w.T if cfg.tie_embeddings else w), False
+    w = tp.param(w, vocab_dim)
+    return tp.copy(x) @ (w.T if cfg.tie_embeddings else w), True
+
+
+def _vocab_parallel_ce(tp: TPAxis, logits: torch.Tensor, labels: torch.Tensor
+                       ) -> torch.Tensor:
+    """``mean(logsumexp(logits) - logits[label])`` over vocab-sharded fp32
+    logits: the max (no gradient: the log-sum-exp does not depend on it),
+    the sum of exponentials and the gold logit each reduced over the ranks."""
+    import torch.distributed as dist
+    m = logits.detach().amax(dim=-1)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=tp.group)
+    logz = m + torch.log(tp.reduce(torch.exp(logits - m[..., None]).sum(dim=-1)))
+    cols = logits.shape[-1]
+    idx = labels.long() - tp.rank * cols
+    inside = (idx >= 0) & (idx < cols)
+    gold = torch.take_along_dim(logits, idx.clamp(0, cols - 1)[..., None], dim=-1)[..., 0]
+    return torch.mean(logz - tp.reduce(gold * inside))
+
+
+def _forward_tp(tp: TPAxis, params: Dict, batch: Dict, cfg: ArchConfig
+                ) -> Tuple[torch.Tensor, torch.Tensor, bool]:
+    """`forward` on one model rank -> (logits, aux, vocab-sharded).
+
+    The residual stream enters each period split along the sequence over
+    the ranks (``_seq_shard``, where S divides) and leaves it so; inside,
+    a block gathers it, and it is split again after each ``attn_mlp`` /
+    ``attn_moe`` block (``cfg.sp_blocks``). Gathering a split stream and
+    splitting a whole one move no number."""
+    params = unwrap(shard_cotangents(params))
+    x = _embed_tp(tp, params, batch, cfg)
+    seq = x.shape[1] % tp.size == 0
+
+    def blocks(x, aux, kinds, block_params, split_at_end):
+        split = seq
+        for kind, p in zip(kinds, block_params):
+            if split:
+                x, split = tp.gather(x, 1), False
+            x, a = _apply_block_tp(tp, kind, p, x, cfg)
+            aux = aux + a
+            if seq and cfg.sp_blocks and kind in ("attn_mlp", "attn_moe"):
+                x, split = tp.split(x, 1), True
+        if split_at_end and seq and not split:
+            x = tp.split(x, 1)
+        elif not split_at_end and split:
+            x = tp.gather(x, 1)
+        return x, aux
+
+    def period_fn(x, aux, slot_params):
+        return blocks(x, aux, cfg.pattern,
+                      [slot_params[f"slot{si}"] for si in range(len(cfg.pattern))], True)
+
+    remat = cfg.remat == "full" and torch.is_grad_enabled()
+    aux = torch.zeros((), device=x.device)
+    if seq:
+        x = tp.split(x, 1)
+    for i in range(cfg.n_periods):
+        slot_params = _period(params["periods"], i)
+        if remat:
+            x, aux = checkpoint(period_fn, x, aux, slot_params, use_reentrant=False)
+        else:
+            x, aux = period_fn(x, aux, slot_params)
+    x, aux = blocks(x, aux, cfg.tail, params["tail"], False)
+    x = rmsnorm(x, tp.full(params["final_norm"]), cfg.norm_eps)
+    logits, vocab_sharded = _unembed_tp(tp, params, x, cfg)
+    return logits, aux, vocab_sharded
 
 
 def prefill_step(params: Dict, batch: Dict, cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -20,7 +20,9 @@ a loop over time with block-diagonal per-head recurrent weights.
 
 Both are leaky-integrator relatives of the paper's LIF neuron: mLSTM's
 forget gate is a learned, input-dependent beta. Decode functions return
-the new state and do not write the one they are given.
+the new state and do not write the one they are given. `mlstm_block_tp`
+and `slstm_block_tp` split the heads over the ranks of a tensor-parallel
+mesh (`dist.tensor_parallel`).
 """
 from __future__ import annotations
 
@@ -86,9 +88,42 @@ def _prefix_sum(x: torch.Tensor) -> torch.Tensor:
 
 def mlstm_block(p: Dict, x: torch.Tensor, n_heads: int, chunk: int = 256) -> torch.Tensor:
     """Chunkwise-parallel mLSTM over [B, S, d]."""
-    b, s, d = x.shape
     q, k, v, li, lf, gate_out = _mlstm_qkv_gates(p, x, n_heads)
-    hd = q.shape[-1]
+    h = _mlstm_chunkwise(q, k, v, li, lf, chunk)
+    return (h.to(x.dtype) * gate_out) @ p["w_down"]
+
+
+def mlstm_block_tp(tp, p: Dict, x: torch.Tensor, n_heads: int, chunk: int = 256
+                   ) -> torch.Tensor:
+    """`mlstm_block` on one model rank (``p`` of `TPLeaf` s, ``x``
+    replicated): ``w_up`` column-parallel and gathered (q, k, v and the
+    gates read every channel), ``wq`` / ``wk`` / ``wv`` / ``w_if`` /
+    ``w_gate`` column-parallel so that this rank holds ``n_heads / tp``
+    heads, whose recurrences run here as in one process, ``w_down``
+    row-parallel with its partial sums all-reduced. Where the heads do
+    not divide, the whole block on every rank."""
+    if not tp.divides(n_heads):
+        return mlstm_block(tp.full(p), x, n_heads, chunk)
+    b, s, _ = x.shape
+    lh = n_heads // tp.size
+    local = {k: tp.param(v, -2 if k == "w_down" else -1) for k, v in p.items()}
+    xc = tp.copy(x)
+    u = tp.gather(xc @ local["w_up"], -1, partial=True)
+    hd = u.shape[-1] // n_heads
+    q = (u @ local["wq"]).reshape(b, s, lh, hd) / math.sqrt(hd)
+    k = (u @ local["wk"]).reshape(b, s, lh, hd) / math.sqrt(hd)
+    v = (u @ local["wv"]).reshape(b, s, lh, hd)
+    gates = (u @ local["w_if"]).float().reshape(b, s, lh, 2)
+    lf = F.logsigmoid(gates[..., 1] + local["b_f"])
+    h = _mlstm_chunkwise(q, k, v, gates[..., 0], lf, chunk)
+    gate_out = F.silu(xc @ local["w_gate"])
+    return tp.reduce((h.to(x.dtype) * gate_out) @ local["w_down"])
+
+
+def _mlstm_chunkwise(q, k, v, li, lf, chunk: int) -> torch.Tensor:
+    """The chunkwise recurrence over q, k, v [B, S, H, hd] and the log
+    gates [B, S, H] -> h [B, S, H * hd] (float32)."""
+    b, s, n_heads, hd = q.shape
     chunk = min(chunk, s)
     assert s % chunk == 0, (s, chunk)
     nc = s // chunk
@@ -100,11 +135,11 @@ def mlstm_block(p: Dict, x: torch.Tensor, n_heads: int, chunk: int = 256) -> tor
 
     qc, kc, vc = rc(q.float()), rc(k.float()), rc(v.float())
     lic, lfc = rc(li), rc(lf)
-    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=q.device))
 
-    C = torch.zeros((b, n_heads, hd, hd), device=x.device)
-    n = torch.zeros((b, n_heads, hd), device=x.device)
-    m = torch.full((b, n_heads), NEG, device=x.device)
+    C = torch.zeros((b, n_heads, hd, hd), device=q.device)
+    n = torch.zeros((b, n_heads, hd), device=q.device)
+    m = torch.full((b, n_heads), NEG, device=q.device)
     hs = []
     for ci in range(nc):
         qi, ki, vi, lii, lfi = qc[ci], kc[ci], vc[ci], lic[ci], lfc[ci]
@@ -134,8 +169,7 @@ def mlstm_block(p: Dict, x: torch.Tensor, n_heads: int, chunk: int = 256) -> tor
         n = decay_state[..., None] * n + (ki * w_j[..., None]).sum(2)
         m = m_next
     # [nc, B, H, L, hd] -> [B, nc, L, H, hd] -> [B, S, H*hd]
-    h = torch.stack(hs).movedim(0, 1).permute(0, 1, 3, 2, 4).reshape(b, s, n_heads * hd)
-    return (h.to(x.dtype) * gate_out) @ p["w_down"]
+    return torch.stack(hs).movedim(0, 1).permute(0, 1, 3, 2, 4).reshape(b, s, n_heads * hd)
 
 
 def mlstm_init_state(batch: int, d: int, n_heads: int, device="cuda",
@@ -218,6 +252,35 @@ def slstm_block(p: Dict, x: torch.Tensor, n_heads: int) -> torch.Tensor:
         carry = _slstm_step(p, n_heads, carry, wx[:, t])
         hs.append(carry[3])
     return torch.stack(hs, dim=1).to(x.dtype) @ p["w_out"]
+
+
+def slstm_block_tp(tp, p: Dict, x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """`slstm_block` on one model rank (``p`` of `TPLeaf` s, ``x``
+    replicated): the recurrence is per head, so each rank runs its
+    ``n_heads / tp`` heads' steps with no collective inside the time loop.
+    The stored layouts do not split by head (``w_in``'s column shards cut
+    across its z / i / f / o blocks, ``r`` is sharded inside a head), so
+    ``w_in``, ``r`` and ``b`` are gathered and this rank's heads' columns
+    taken (their gradients summed over the ranks); ``w_out`` is
+    row-parallel and its partial sums all-reduced. Where the heads do not
+    divide, the whole block on every rank."""
+    if not tp.divides(n_heads):
+        return slstm_block(tp.full(p), x, n_heads)
+    b, s, d = x.shape
+    lh = n_heads // tp.size
+    ld = d // tp.size
+    cols = torch.cat([torch.arange(g * d + tp.rank * ld, g * d + (tp.rank + 1) * ld,
+                                   device=x.device) for g in range(4)])
+    mine = {"r": tp.copy(tp.param(p["r"], None))[:, tp.rank * lh:(tp.rank + 1) * lh],
+            "b": tp.copy(tp.param(p["b"], None))[..., cols]}
+    wx = (tp.copy(x) @ tp.copy(tp.param(p["w_in"], None))[:, cols]).float()   # [B, S, 4 ld]
+    zero = torch.zeros((b, ld), device=x.device)
+    carry = (zero, zero, torch.full((b, ld), NEG, device=x.device), zero)
+    hs = []
+    for t in range(s):
+        carry = _slstm_step(mine, lh, carry, wx[:, t])
+        hs.append(carry[3])
+    return tp.reduce(torch.stack(hs, dim=1).to(x.dtype) @ tp.param(p["w_out"], -2))
 
 
 def slstm_init_state(batch: int, d: int, device="cuda", lead: Tuple[int, ...] = ()

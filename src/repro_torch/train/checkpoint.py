@@ -12,6 +12,15 @@ Restore takes a *template* tree (the state itself will do): each leaf is
 checked against the template's shape, cast to its dtype and placed on its
 device.
 
+Tensor parallelism: a tree with DTensor leaves (`dist.sharding.place`) is
+saved whole: every rank calls `save`, each sharded leaf is gathered (a
+collective), and rank 0 alone writes the reference's bytes. `restore`
+places each leaf onto a mesh, as the reference's ``shardings=`` does: by
+a tree of DTensor placements on the ambient mesh (``compute_mesh``), or by
+the template's own DTensor layout; None (or a plain template leaf) keeps
+it a whole tensor, replicated. The mesh need not be the one that wrote
+the checkpoint (elastic restore).
+
 bfloat16 leaves are stored as the reference stores them: numpy has no
 bfloat16, and JAX's ``np.asarray`` of one is an ``ml_dtypes`` array that
 ``np.savez`` writes as 2-byte void records (header descr ``'<V2'``, the
@@ -31,7 +40,7 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
-from .tree import keystr, tree_leaves_with_path, tree_map_with_path
+from .tree import keystr, tree_leaves_with_path, tree_map, tree_map_with_path
 
 PROCESS = 0   # one process; the file name keeps the reference's multi-host shape
 BF16 = "bfloat16"
@@ -66,8 +75,14 @@ def _write_npz(path: str, arrays: dict, bf16: set) -> None:
 
 
 def save(ckpt_dir: str, step: int, tree: Any, *, keep: int = 3) -> str:
-    os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if _has_dtensor(tree):
+        import torch.distributed as dist
+        from ..dist.sharding import gather
+        tree = gather(tree)
+        if dist.get_rank() != 0:
+            return final
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = final + f".tmp.{os.getpid()}"
     os.makedirs(tmp, exist_ok=True)
 
@@ -122,10 +137,18 @@ def _to_tensor(arr: np.ndarray, dtype: str) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))
 
 
-def restore(ckpt_dir: str, step: int, template: Any) -> Any:
+def _has_dtensor(tree) -> bool:
+    from torch.distributed.tensor import DTensor
+    return any(isinstance(x, DTensor) for _, x in tree_leaves_with_path(tree))
+
+
+def restore(ckpt_dir: str, step: int, template: Any, *, shardings: Any = None) -> Any:
     """Restore into the structure of ``template`` (a tree of tensors): shapes
     checked (ValueError), missing leaves refused (KeyError), dtypes and
-    devices taken from the template."""
+    devices taken from the template. ``shardings``: a tree like the
+    template of DTensor placements on the ambient mesh
+    (`dist.sharding.placements`), None entries whole; without it a
+    DTensor template leaf gives its own layout."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(final, "manifest.json")) as f:
         manifest = json.load(f)
@@ -142,4 +165,23 @@ def restore(ckpt_dir: str, step: int, template: Any) -> Any:
                              f"template {tuple(t.shape)}")
         return _to_tensor(arr, dtype).to(dtype=t.dtype, device=t.device)
 
-    return tree_map_with_path(build, template)
+    out = tree_map_with_path(build, template)
+    if shardings is None and not _has_dtensor(template):
+        return out
+    from torch.distributed.tensor import DTensor
+    from ..dist.context import current_mesh
+    from ..dist.sharding import _from_full
+
+    def place(full, t, pl=None):
+        if pl is not None:
+            mesh = current_mesh()
+            if getattr(mesh, "device_mesh", None) is None:
+                raise ValueError("restore(shardings=...) places onto the ambient mesh: run it "
+                                 "under compute_mesh(make_process_mesh(...))")
+            return _from_full(full, mesh.device_mesh, pl)
+        if shardings is None and isinstance(t, DTensor):
+            return _from_full(full, t.device_mesh, t.placements)
+        return full
+    if shardings is None:
+        return tree_map(place, out, template)
+    return tree_map(place, out, template, shardings)

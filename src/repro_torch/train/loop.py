@@ -12,7 +12,11 @@ writes each checkpoint, behind a barrier, with the error-feedback residuals
 layout; a resume reads it on every rank and hands each rank its row. With
 more than one rank the loop also checks that all ranks hold the same
 parameters and optimizer state (`replicas_agree`: a fingerprint after
-every step, every bit after the last), and raises if they do not.
+every step, every bit after the last), and raises if they do not. On a
+tensor-parallel mesh (`launch.mesh.make_process_mesh`) the state is
+placed (DTensor leaves): every rank joins the gather of each checkpoint,
+and the check compares the data replicas of each shard (ranks of one
+model index); shards of different model ranks differ by design.
 """
 from __future__ import annotations
 
@@ -41,24 +45,27 @@ def _process_mesh() -> Optional[ProcessMesh]:
 
 
 def replicas_agree(state: Dict, mesh: ProcessMesh, exact: bool = False) -> bool:
-    """Whether every rank holds the same params, optimizer state and step
-    (residuals, ``grad_err``, are rank-local and not compared); the same
-    answer on every rank. A fingerprint by default: per leaf, the int64 sum
+    """Whether every rank of ``mesh``'s data group holds the same params,
+    optimizer state and step (residuals, ``grad_err``, are rank-local and
+    not compared; of a placed state, each rank's shards); the same answer
+    on every rank. A fingerprint by default: per leaf, the int64 sum
     of its bit patterns (a float leaf viewed as the integer of its width),
     gathered in rank order and compared with rank 0's. ``exact``: every
     bit, as the elementwise ``MAX`` and ``MIN`` of the bit patterns over
-    the ranks being equal (two all-reduces of the whole state)."""
-    leaves = tree_leaves({k: v for k, v in state.items() if k != "grad_err"})
+    the ranks being equal (two all-reduces per leaf, so no more than one
+    leaf's copies are in flight)."""
+    from torch.distributed.tensor import DTensor, Shard
+    leaves = [x.to_local() if isinstance(x, DTensor) else x
+              for x in tree_leaves({k: v for k, v in state.items() if k != "grad_err"})
+              # an FSDP leaf is split over 'data': it has no replicas there
+              if not (isinstance(x, DTensor) and isinstance(x.placements[0], Shard))]
     bits = [x.contiguous().view(_BITS[x.element_size()]).reshape(-1) for x in leaves]
     if not exact:
         rows = gather_rows(torch.stack([b.to(torch.int64).sum() for b in bits]), mesh.group())
         return bool((rows == rows[0]).all())
     agree = True
-    for wide in (torch.int64, torch.int32):
-        group = [b.to(wide) for b in bits if (b.element_size() == 8) == (wide == torch.int64)]
-        if not group:
-            continue
-        hi = torch.cat(group)
+    for b in bits:
+        hi = b.to(torch.int64 if b.element_size() == 8 else torch.int32).clone()
         lo = hi.clone()
         dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=mesh.group())
         dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=mesh.group())
@@ -119,7 +126,7 @@ class TrainLoop:
             ckpt.save(self.ckpt_dir, step, state, keep=self.keep)
             return
         tree = gather_error_state(state, mesh)
-        if mesh.rank == 0:
+        if mesh.rank == 0 or ckpt._has_dtensor(tree):      # a placed tree: every rank gathers
             ckpt.save(self.ckpt_dir, step, tree, keep=self.keep)
         dist.barrier()
 

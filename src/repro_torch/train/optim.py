@@ -8,8 +8,11 @@ No external deps — each optimizer is (init, update):
 Every update is written in the reference's order of operations, so a step
 rounds as the JAX package's does (``torch.optim.AdamW`` orders its update
 differently). ``zero1_spec`` is the ZeRO-1 rule for one optimizer leaf
-(``dist.sharding.zero1_opt_specs`` is its tree form); placing state by it
-waits for the tensor-parallel slice.
+(``dist.sharding.zero1_opt_specs`` is its tree form); nothing places
+optimizer state by it. Under tensor parallelism (`train.train_step`) SGD
+and AdamW update each rank's shards elementwise, their moments laid out as
+their parameters; `clip_by_global_norm` counts each shard once
+(``shards``).
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ from typing import Any, Callable, NamedTuple, Tuple
 
 import torch
 
-from .tree import tree_leaves, tree_map
+from .tree import tree_leaves, tree_leaves_with_path, tree_map, tree_map_with_path
 
 
 class Optimizer(NamedTuple):
@@ -29,13 +32,40 @@ def apply_updates(params, updates):
     return tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in tree_leaves(tree)))
+def global_norm(tree, shards=None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares. ``shards`` (a tree like
+    ``tree``; tensor parallelism): per leaf, the process groups its local
+    shard is split over, ``()`` for a replicated leaf. Each group of
+    leaves split over the same groups sums its squares locally, and that
+    sum is all-reduced over those groups once; a replicated leaf counts
+    once. Every rank gets the same norm."""
+    leaves = tree_leaves(tree)
+    if shards is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32))) for x in leaves))
+    import torch.distributed as dist
+    buckets = {}
+    for x, groups in zip(leaves, _leaves_like(tree, shards)):
+        sq = torch.sum(torch.square(x.to(torch.float32)))
+        key = tuple(groups)
+        buckets[key] = sq if key not in buckets else buckets[key] + sq
+    total = None
+    for groups, sq in buckets.items():
+        for group in groups:
+            dist.all_reduce(sq, op=dist.ReduceOp.SUM, group=group)
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    norm = global_norm(grads)
+def _leaves_like(tree, other):
+    """``other``'s entries at ``tree``'s leaves, in `tree_leaves` order
+    (``other`` may hold tuples as entries)."""
+    by_path = {}
+    tree_map_with_path(lambda path, _, o: by_path.__setitem__(path, o), tree, other)
+    return [by_path[path] for path, _ in tree_leaves_with_path(tree)]
+
+
+def clip_by_global_norm(grads, max_norm: float, shards=None):
+    norm = global_norm(grads, shards)
     # a tensor numerator: `float / tensor` is reciprocal-then-multiply in torch
     scale = torch.clamp(torch.full_like(norm, max_norm) / torch.clamp(norm, min=1e-9),
                         max=1.0)

@@ -17,9 +17,20 @@ data parallelism over a ``torch.distributed`` process group
   `shard_map_compressed_step` wraps it to take the global batch.
 
 Either way every rank ends a step with the same parameter and optimizer
-bits. Gradient shardings (``grad_shardings``) lay tensors out over a
-``'model'`` axis and wait for the tensor-parallel slice: asking for them
-raises `NotImplementedError`.
+bits.
+
+Tensor parallelism: under a ``(data, model)`` mesh with more than one
+model rank (`launch.mesh.make_process_mesh`), the state holds the placed
+tree (`dist.sharding.place`: parameters and their SGD / AdamW moments as
+DTensors, each rank its `param_spec` shards). The step takes the global
+batch (or a `data.pipeline.DataPipeline` batch of this rank's rows), the
+model computes on the shards (`models.transformer`), each gradient comes
+back as its parameter's shard (held to ``grad_shardings`` where given),
+the gradients and loss are averaged over the ``'data'`` group in rank
+order as above, the global norm counts each shard once, and the
+optimizer updates each shard. The data replicas of every shard end the
+step with the same bits; shards of different model ranks differ by
+design.
 
 Steps run under `deterministic`: the same state and batch give
 bit-identical parameters and optimizer state run to run on the card too
@@ -35,6 +46,7 @@ import torch
 import torch.distributed as dist
 
 from ..dist.context import compute_mesh, current_mesh
+from ..dist.sharding import local
 from ..launch.mesh import ProcessMesh
 from .optim import Optimizer, apply_updates, clip_by_global_norm
 from .tree import tree_leaves_with_path, tree_map, tree_map_with_path
@@ -83,6 +95,45 @@ def data_mesh() -> Optional[ProcessMesh]:
     return mesh if isinstance(mesh, ProcessMesh) and mesh.shape["data"] > 1 else None
 
 
+def tp_mesh() -> Optional[ProcessMesh]:
+    """The ambient process-group mesh when its 'model' axis has more than
+    one rank, else None."""
+    mesh = current_mesh()
+    return mesh if isinstance(mesh, ProcessMesh) and mesh.device_mesh is not None else None
+
+
+def _rewrap(new, like):
+    """``new`` (a local shard) as a DTensor laid out as ``like``; plain
+    tensors pass."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(like, DTensor):
+        return new
+    return DTensor.from_local(new, like.device_mesh, like.placements, run_check=False,
+                              shape=like.shape, stride=like.stride())
+
+
+def _hold(g, placements):
+    """A DTensor gradient relaid to ``placements`` where it differs."""
+    from torch.distributed.tensor import DTensor
+    from ..dist.sharding import _from_full, full_tensor
+    if placements is None or not isinstance(g, DTensor) \
+            or tuple(g.placements) == tuple(placements):
+        return g
+    return _from_full(full_tensor(g), g.device_mesh, placements)
+
+
+def _batch_rows(batch: Dict, mesh: ProcessMesh) -> Dict:
+    """This rank's rows: a `DataPipeline` batch on a mesh already is (its
+    DTensor leaves' local shards), a global batch is cut by data rank."""
+    from torch.distributed.tensor import DTensor
+    leaves = [x for _, x in tree_leaves_with_path(batch)]
+    if any(isinstance(x, DTensor) for x in leaves):
+        return tree_map(lambda x: x.to_local() if isinstance(x, DTensor) else x, batch)
+    if mesh.shape["data"] == 1:
+        return batch
+    return local_rows(batch, mesh.data_rank, mesh.shape["data"])
+
+
 def local_rows(batch: Dict, rank: int, n: int) -> Dict:
     """Rank ``rank``'s contiguous rows of every leaf with a leading dim
     (the reference's ``P('data')`` batch layout); 0-d leaves pass."""
@@ -112,14 +163,20 @@ def gather_rows(flat: torch.Tensor, group=None) -> torch.Tensor:
 def rank_order_mean(tensors: List[torch.Tensor], group=None) -> List[torch.Tensor]:
     """The fp32 mean of each tensor over ``group``'s ranks, summed in rank
     order (((x0 + x1) + x2) + ...) / n, cast back to its dtype: one fixed
-    order, so every rank gets the same bits."""
+    order, so every rank gets the same bits. Two ranks' sum is one
+    addition per element, the same either way round, so there it is a
+    plain ``all_reduce(SUM)`` (half the bytes of the stack of rows)."""
     flat = torch.cat([t.to(torch.float32).reshape(-1) for t in tensors])
-    rows = gather_rows(flat, group)
-    total = rows[0].clone()
-    for row in rows[1:]:
-        total += row
-    total = total / torch.tensor(float(rows.shape[0]), dtype=torch.float32,
-                                 device=total.device)
+    n = dist.get_world_size(group)
+    if n == 2:
+        total = flat
+        dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+    else:
+        rows = gather_rows(flat, group)
+        total = rows[0].clone()
+        for row in rows[1:]:
+            total += row
+    total = total / torch.tensor(float(n), dtype=torch.float32, device=total.device)
     out, at = [], 0
     for t in tensors:
         out.append(total[at:at + t.numel()].reshape(t.shape).to(t.dtype))
@@ -184,12 +241,14 @@ def make_train_step(
     ``compress_per_channel`` takes one scale per last-axis channel.
 
     Without ``compress_axis``, under an ambient process-group mesh with more
-    than one 'data' rank, the step is the plain data-parallel one (module
-    docstring). ``grad_shardings`` raises `NotImplementedError`."""
-    if grad_shardings is not None:
-        raise NotImplementedError(
-            "grad_shardings lay gradients out over a 'model' axis: they arrive with the "
-            "tensor-parallel slice (ROADMAP, queue 1)")
+    than one 'data' rank, the step is the plain data-parallel one; with
+    more than one 'model' rank, the tensor-parallel one (module docstring).
+
+    grad_shardings: a tree like the parameters of DTensor placements
+    (`dist.sharding.placements`; None entries: as computed): each DTensor
+    gradient is held to its entry's layout (relaid where it differs), and
+    the update then uses its parameter's. Plain-tensor gradients (one
+    device, a data-parallel mesh) have no layout to hold."""
     if compress_per_channel and not compress_axis:
         raise ValueError("compress_per_channel needs compress_axis")
     value_grad = value_and_grad(loss_fn)
@@ -197,6 +256,11 @@ def make_train_step(
 
     def grad_fn(params, batch):
         loss, grads = value_grad(params, batch)
+        if grad_shardings is not None:
+            grads = tree_map(_hold, grads, grad_shardings)
+        # the update's layout is the parameter's; the optimizer runs on shards
+        grads = tree_map(lambda g, p: _hold(g, getattr(p, "placements", None)), grads, params)
+        grads = local(grads)
         if dtype is not None:
             grads = tree_map(lambda g: g.to(dtype), grads)
         return loss, grads
@@ -212,7 +276,7 @@ def make_train_step(
 
         loss = torch.zeros((), dtype=torch.float32)
         grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                               device=p.device), params)
+                                               device=p.device), local(params))
         for i in range(accum_steps):
             loss_i, grads_i = grad_fn(params, micro(i))
             grads = tree_map(lambda a, g: a + g.to(torch.float32) / accum_steps, grads, grads_i)
@@ -220,10 +284,13 @@ def make_train_step(
         return loss, grads
 
     def train_step(state: Dict, batch: Dict) -> Tuple[Dict, Dict]:
+        tp = None if compress_axis else tp_mesh()
+        if tp is not None:
+            return _tp_step(state, batch, tp)
         with deterministic():
             mesh = None if compress_axis else data_mesh()
             if mesh is not None:
-                batch = local_rows(batch, mesh.rank, mesh.shape["data"])
+                batch = local_rows(batch, mesh.data_rank, mesh.shape["data"])
             loss, grads = compute_grads(state["params"], batch)
             new_err = None
             with torch.no_grad():
@@ -248,7 +315,73 @@ def make_train_step(
             new_state["grad_err"] = new_err
         return new_state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
 
+    def _tp_step(state: Dict, batch: Dict, mesh: ProcessMesh) -> Tuple[Dict, Dict]:
+        from torch.distributed.tensor import DTensor, Shard
+        params, opt_state = state["params"], state["opt"]
+        for path, x in tree_leaves_with_path(opt_state):
+            if x.ndim and not isinstance(x, DTensor):
+                raise NotImplementedError(
+                    f"optimizer leaf {path} is not laid out like a parameter: under tensor "
+                    "parallelism the step updates SGD and AdamW state (elementwise moments), "
+                    "not Adafactor's factored rows and columns")
+        with deterministic():
+            loss, grads = compute_grads(params, _batch_rows(batch, mesh))
+            with torch.no_grad():
+                # which groups each leaf is split over; a leaf split over
+                # 'data' (FSDP experts) had its gradient averaged there in
+                # the backward, every other one is averaged here
+                shards = tree_map(lambda p: tuple(
+                    mesh.group(name) for name, pl in zip(p.device_mesh.mesh_dim_names,
+                                                         p.placements)
+                    if isinstance(pl, Shard)) if isinstance(p, DTensor) else (), params)
+                data_split = tree_map(lambda p: isinstance(p, DTensor) and isinstance(
+                    p.placements[0], Shard), params)
+                if mesh.shape["data"] > 1:
+                    # leaf by leaf (the same bits as one buffer: the mean is
+                    # elementwise), so the rows in flight are one leaf's
+                    group = mesh.group("data")
+                    loss, = rank_order_mean([loss], group)
+                    grads = tree_map(lambda g, split: g if split
+                                     else rank_order_mean([g], group)[0], grads, data_split)
+                grads, gnorm = clip_by_global_norm(grads, clip_norm, shards)
+                lr = lr_fn(state["step"])
+                by_path = dict(tree_leaves_with_path(grads))
+                del grads                    # each gradient is released once used
+                new_params, new_opt = _update_by_leaf(opt, by_path, local(opt_state),
+                                                      local(params), lr)
+        new_state = {"params": tree_map(_rewrap, new_params, params),
+                     "opt": tree_map(_rewrap, new_opt, opt_state), "step": state["step"] + 1}
+        return new_state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
+
     return train_step
+
+
+def _update_by_leaf(opt: Optimizer, g_by: Dict, opt_state: Dict, params: Any, lr
+                    ) -> Tuple[Any, Dict]:
+    """``opt.update`` and `apply_updates` one parameter leaf at a time ->
+    (new params, new optimizer state): the same numbers as one call over
+    the trees (an SGD or AdamW update is elementwise within a leaf, given
+    the step's scalars), with one leaf's temporaries alive at a time.
+    ``g_by`` maps each parameter's path to its gradient, and each is
+    popped (released) once used. The optimizer state's entries that mirror
+    the parameters (``m`` / ``v``, ``mu``) are cut per leaf; the others
+    (``t``) are passed whole."""
+    paths = [p for p, _ in tree_leaves_with_path(params)]
+    mirrors = [k for k, v in opt_state.items() if isinstance(v, (dict, tuple, list))]
+    by_key = {k: dict(tree_leaves_with_path(opt_state[k])) for k in mirrors}
+    scalars = {k: v for k, v in opt_state.items() if k not in mirrors}
+    p_by = dict(tree_leaves_with_path(params))
+    new_p, new_s, rest = {}, {k: {} for k in mirrors}, scalars
+    for path in paths:
+        leaf_state = dict(scalars, **{k: by_key[k][path] for k in mirrors})
+        upd, leaf_new = opt.update(g_by.pop(path), leaf_state, p_by[path], lr)
+        new_p[path] = apply_updates(p_by[path], upd)
+        for k in mirrors:
+            new_s[k][path] = leaf_new[k]
+        rest = {k: v for k, v in leaf_new.items() if k not in mirrors}
+    new_opt = dict(rest, **{k: tree_map_with_path(lambda p, _: new_s[k][p], opt_state[k])
+                            for k in mirrors})
+    return tree_map_with_path(lambda p, _: new_p[p], params), new_opt
 
 
 def stack_error_state(state: Dict, n_shards: int) -> Dict:

@@ -267,6 +267,68 @@ def case_snn_cli(argv):
                        for k in keys]}
 
 
+def _tp_mesh():
+    import jax
+    return jax.make_mesh((2, 2), ("data", "model"),
+                         axis_types=(jax.sharding.AxisType.Auto,) * 2)
+
+
+def case_tp_step(cfg, params, batch, lr, ckpt_dir=""):
+    """The reference's GSPMD step on a (2, 2) ``('data', 'model')`` mesh,
+    as `tests/test_dist.py`'s sharded case runs it, on carried weights (laid
+    out by `param_specs`) and a global batch over 'data': the loss and
+    gradients, and one AdamW step; the new state written to ``ckpt_dir``."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    from repro.dist import sharding as shd
+    from repro.dist.context import compute_mesh
+    from repro.models import transformer as tf
+    from repro.train import checkpoint as ckpt
+    from repro.train.optim import adamw
+    from repro.train.schedule import constant
+    from repro.train.train_step import init_train_state, make_train_step
+    cfg = _arch(cfg)
+    mesh = _tp_mesh()
+    opt = adamw(weight_decay=0.0)
+    loss_fn = lambda p, b: tf.train_loss(p, b, cfg)  # noqa: E731
+    with mesh, compute_mesh(mesh):
+        p = jax.tree.map(jnp.asarray, params)
+        specs = shd.param_specs(jax.eval_shape(lambda: p), mesh, fsdp_experts=cfg.fsdp_experts)
+        p = jax.tree.map(lambda x, s: jax.device_put(x, NamedSharding(mesh, s)), p, specs,
+                         is_leaf=lambda x: isinstance(x, P))
+        bs = NamedSharding(mesh, P("data", None))
+        b = jax.tree.map(lambda x: jax.device_put(jnp.asarray(x), bs), batch)
+        step = make_train_step(loss_fn, opt, constant(lr))
+
+        def grads_and_step(p, b):
+            return jax.value_and_grad(loss_fn)(p, b), step(init_train_state(p, opt), b)
+        (loss, grads), (state2, m) = jax.jit(grads_and_step)(p, b)
+        state2 = jax.device_get(state2)
+    if ckpt_dir:
+        ckpt.save(ckpt_dir, 1, state2)
+    return {"loss": float(loss), "grads": _np(grads), "state": _np(state2),
+            "step_loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+
+
+def case_tp_batch(batch):
+    """Each device's rows of ``batch`` under ``NamedSharding(mesh,
+    P('data', None))`` on the (2, 2) mesh, keyed by its flat mesh position
+    (row-major: data * 2 + model)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    mesh = _tp_mesh()
+    out = {}
+    for key, x in batch.items():
+        arr = jax.device_put(jnp.asarray(x), NamedSharding(mesh, P("data", None)))
+        by_dev = {s.device: np.asarray(s.data) for s in arr.addressable_shards}
+        for pos, dev in enumerate(mesh.devices.flat):
+            out.setdefault(pos, {})[key] = by_dev[dev]
+    return out
+
+
 CASES = {k[5:]: v for k, v in dict(globals()).items() if k.startswith("case_")}
 
 

@@ -298,16 +298,19 @@ def test_reference_rule_cases():
 
 
 def test_shard_cotangents_and_placements():
-    """`shard_cotangents` is the identity without a 'model' axis > 1 and
-    raises with one; `to_placements` on a 1-rank gloo DeviceMesh."""
+    """`shard_cotangents` is the identity on plain tensors, with or without
+    a 'model' axis > 1; under one, a DTensor leaf keeps its value and its
+    gradient is held to the leaf's placements (a cotangent that arrives
+    replicated comes back laid out as the leaf); `to_placements` on a
+    1-rank gloo DeviceMesh."""
     import torch.distributed as dist
-    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor import DTensor, Replicate, Shard
     tree = {"w": torch.ones(4, 4)}
     assert shd.shard_cotangents(tree) is tree
     with compute_mesh(FakeMesh(data=2, model=1)):
         assert shd.shard_cotangents(tree) is tree
-    with compute_mesh(MESHES["4x2"]), pytest.raises(NotImplementedError, match="tensor-parallel"):
-        shd.shard_cotangents(tree)
+    with compute_mesh(MESHES["4x2"]):
+        assert shd.shard_cotangents(tree)["w"] is tree["w"]
     assert not dist.is_initialized()
     dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
     try:
@@ -321,6 +324,14 @@ def test_shard_cotangents_and_placements():
         assert shd.to_placements(P(None, "model"), dm) == [Replicate(), Shard(1)]
         assert shd.to_placements(P(("pod", "data"), None), dm) == [Shard(0), Replicate()]
         assert shd.to_placements(P(), dm) == [Replicate(), Replicate()]
+        w = DTensor.from_local(torch.arange(8.0).reshape(2, 4), dm, [Replicate(), Shard(1)],
+                               run_check=False).requires_grad_()
+        with compute_mesh(MESHES["4x2"]):
+            held = shd.shard_cotangents({"w": w})["w"]
+        assert torch.equal(held.to_local(), w.to_local())
+        (held.to_local(grad_placements=[Replicate(), Replicate()]) ** 2).sum().backward()
+        assert tuple(w.grad.placements) == (Replicate(), Shard(1))
+        assert torch.equal(w.grad.to_local(), 2 * w.to_local())
         mesh.close()
         assert dist.is_initialized()              # a group it did not start stays up
     finally:

@@ -160,7 +160,9 @@ def test_cli_refuses_unported_flags(flags):
 
 
 @pytest.mark.parametrize("flags,expect", [
-    (["--workload", "lm", "--scheduler", "slo", "--slo-ms", "3000", "--prefill-chunk", "4",
+    # a wall-clock deadline no loaded host misses (10 minutes): the case holds
+    # that the flag is served; expiry is held on the step clock below
+    (["--workload", "lm", "--scheduler", "slo", "--slo-ms", "600000", "--prefill-chunk", "4",
       "--tokens", "4"], "'scheduler': 'slo'"),
     (["--workload", "snn", "--scheduler", "sparsity", "--mixed-trace", "--precision",
       "adaptive", "--metrics", "prom", "--requests", "6"], "# TYPE precision_served_int4 gauge"),
@@ -182,6 +184,33 @@ def test_cli_serves_ported_flags(capsys, flags, expect):
         assert {"precision=fp32", "precision=int4"} <= {
             w for line in reqs for w in line.split() if w.startswith("precision=")}
         assert "trace: " in out
+
+
+@pytest.mark.parametrize("deadline,statuses", [(100.0, ["ok"] * 4),
+                                               (2.0, ["expired"] * 4)],
+                         ids=["met", "missed"])
+def test_slo_deadlines_on_the_step_clock(deadline, statuses):
+    """The CLI's SLO engine (reduced LM, its prompts, slots and chunk) on
+    `StepClock`, where one engine step is one second: a deadline of 100
+    steps is met by every request and one of 2 steps by none (each needs a
+    prefill step and 4 decode tokens), whatever the host's load."""
+    from repro_torch.serve.core import StepClock
+    args = cli.parse_args(["--workload", "lm", "--scheduler", "slo", "--prefill-chunk", "4",
+                           "--tokens", "4", "--device", "cpu"])
+    cfg = cli.reduce_cfg(cli.get_arch(args.arch), args).with_(frontend="", n_frontend_tokens=0)
+    params = cli.tf.init_params(torch.Generator().manual_seed(args.seed), cfg, "cpu")
+    runner = cli.LMRunner(cfg, params, max_seq=args.seq, device="cpu")
+    core = EngineCore(runner, cli.engine_config(args), clock=StepClock())
+    gen = torch.Generator().manual_seed(args.seed + 1)
+    prompts = []
+    for _ in range(args.requests):
+        length = int(torch.randint(1, 6, (), generator=gen))
+        prompts.append(torch.randint(1, cfg.vocab, (length,), generator=gen).tolist())
+    ids = [core.submit(p, max_new_tokens=args.tokens, deadline_s=deadline) for p in prompts]
+    results = core.run_until_complete()
+    assert [results[i].status for i in ids] == statuses
+    assert core.stats()["scheduler"] == "slo"
+    assert core.stats()["expired"] == statuses.count("expired")
 
 
 def _request_lines(capsys, argv):

@@ -376,14 +376,20 @@ def test_grad_accumulation_matches_full_batch(jax_params):
 
 
 def test_train_step_refuses_distribution_options():
-    """What the data-parallel slice left out is refused: gradient shardings
-    (a 'model' axis layout); a compressed step needs a process group to
-    reduce over and raises without one. What it ported works on one
-    device: the compressed state and the gradient dtype cast."""
+    """The distribution options on one device: gradient shardings hold
+    DTensor gradients to a layout, and plain ones have none to hold, so
+    the step's bits do not move (the layouts themselves:
+    `tests/test_torch_tp.py`); a compressed step needs a process group to
+    reduce over and raises without one; the compressed state and the
+    gradient dtype cast work."""
     opt = optim.sgd()
     loss = lambda p, b: (p["w"] ** 2).sum()  # noqa: E731
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        make_train_step(loss, opt, schedule.constant(0.1), grad_shardings={})
+    state0 = init_train_state({"w": torch.ones(2)}, opt)
+    plain, _ = make_train_step(loss, opt, schedule.constant(0.1))(state0, {})
+    held, _ = make_train_step(loss, opt, schedule.constant(0.1),
+                              grad_shardings={"w": None})(state0, {})
+    assert torch.equal(plain["params"]["w"], held["params"]["w"])
+    assert torch.equal(plain["opt"]["mu"]["w"], held["opt"]["mu"]["w"])
     state = init_train_state({"w": torch.ones(2)}, opt, compress=True)
     assert torch.equal(state["grad_err"]["w"], torch.zeros(2))
     step = make_train_step(loss, opt, schedule.constant(0.1), compress_axis="data")

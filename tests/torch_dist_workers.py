@@ -207,8 +207,168 @@ def case_spike_stats(rank, world, inp, device):
             "own": _numpy(stats.counts)}
 
 
+def _layouts(tree):
+    """{key: (placements, local shape, global shape)} of a placed tree's
+    DTensor leaves."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.train.tree import keystr, tree_leaves_with_path
+    return {keystr(p): (tuple(str(pl) for pl in x.placements), tuple(x.to_local().shape),
+                        tuple(x.shape))
+            for p, x in tree_leaves_with_path(tree) if isinstance(x, DTensor)}
+
+
+def _tp_grads(mesh, placed, batch, cfg):
+    """`train_loss` and its gradients on this rank's rows of ``batch``
+    under ``mesh``, averaged over the data ranks in rank order as the
+    step averages them -> (loss, whole gradients, the gradients' layouts)."""
+    from torch.distributed.tensor import Shard
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.train_step import local_rows, rank_order_mean, value_and_grad
+    from repro_torch.train.tree import tree_leaves_with_path, tree_map_with_path
+    rows = local_rows(batch, mesh.data_rank, mesh.shape["data"])
+    loss, grads = value_and_grad(lambda p, b: tf.train_loss(p, b, cfg))(placed, rows)
+    layouts = _layouts(grads)
+    full = dict(tree_leaves_with_path(shd.gather(grads)))
+    # an FSDP leaf's gradient was averaged over 'data' in its backward
+    paths = [p for p, g in tree_leaves_with_path(grads) if not isinstance(g.placements[0], Shard)]
+    loss, *means = rank_order_mean([loss] + [full[p] for p in paths], mesh.group("data"))
+    full.update(zip(paths, means))
+    return float(loss), _numpy(tree_map_with_path(lambda p, _: full[p], grads)), layouts
+
+
+def case_tp(rank, world, inp, device):
+    """Tensor parallelism on a (2, 2) mesh of the 4 ranks, every case of
+    ``tests/test_torch_tp.py`` in one group: per ``inp['steps']`` config,
+    the placed tree's gradients and one AdamW step (global batch, carried
+    weights), layouts, replica agreement, a rerun; per ``inp['losses']``
+    config, `train_loss` and its gradients with the whole batch on every
+    data rank (each model pair does a (1, 2) mesh's work); the elastic
+    checkpoint (written here on (2, 2), restored onto (2, 2), (4, 1) and one
+    process) and the reference's (2, 2) checkpoint restored onto (2, 2);
+    the rows a `DataPipeline` on the mesh hands this rank."""
+    import time
+    from repro_torch.configs.base import ArchConfig
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist.context import compute_mesh
+    from repro_torch.launch.mesh import make_host_mesh, make_process_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optim, schedule
+    from repro_torch.train.loop import replicas_agree
+    from repro_torch.train.train_step import init_train_state, make_train_step, value_and_grad
+    from repro_torch.train.tree import tree_leaves_with_path
+    mesh = make_process_mesh(2, 2, device)
+    opt = optim.adamw(weight_decay=0.0)
+    out = {"coords": (mesh.data_rank, mesh.model_rank), "steps": {}, "losses": {}}
+    for name, case in inp["steps"].items():
+        cfg = ArchConfig(**case["cfg"])
+        params = tf.params_from_numpy(case["params"], device)
+        batch = _tensors(case["batch"], device)
+        placed = shd.place(params, mesh, cfg.fsdp_experts)
+        state = init_train_state(placed, opt)
+        step = make_train_step(lambda p, b: tf.train_loss(p, b, cfg), opt,
+                               schedule.constant(case["lr"]),
+                               grad_shardings=shd.placements(params, mesh, cfg.fsdp_experts))
+        with compute_mesh(mesh):
+            loss, grads, grad_layouts = _tp_grads(mesh, placed, batch, cfg)
+            new, metrics = step(state, batch)
+            again, _ = step(state, batch)
+            agree = replicas_agree(new, mesh, exact=True)
+            whole = _numpy(shd.gather(new))
+        out["steps"][name] = {
+            "loss": loss, "grads": grads, "step_loss": float(metrics["loss"]), "state": whole,
+            "grad_norm": float(metrics["grad_norm"]),
+            "layouts": {"params": _layouts(placed), "grads": grad_layouts,
+                        "opt": _layouts(new["opt"]), "new_params": _layouts(new["params"])},
+            "local": _numpy(shd.local(new["params"])), "agree": agree,
+            "rerun_equal": all(torch_equal(a, b) for (_, a), (_, b) in zip(
+                tree_leaves_with_path(shd.local(new)), tree_leaves_with_path(shd.local(again))))}
+        if name == inp["elastic"]:
+            root = inp["root"]
+            with compute_mesh(mesh):
+                ckpt.save(root, 1, new)
+            torch_barrier()
+            back = ckpt.restore(root, 1, new)           # onto the template's own layout
+            template = shd.gather(new)
+            host = make_host_mesh(device)
+            with compute_mesh(host):
+                onto41 = ckpt.restore(root, 1, template)
+            out["elastic"] = {
+                "onto22_equal": all(torch_equal(a, b) for (_, a), (_, b) in zip(
+                    tree_leaves_with_path(shd.local(back)),
+                    tree_leaves_with_path(shd.local(new)))),
+                "onto22_layouts": _layouts(back), "onto41": _numpy(onto41),
+                "one_process": _numpy(ckpt.restore(root, 1, template)) if rank == 0 else None}
+    for name, case in inp["losses"].items():
+        cfg = ArchConfig(**case["cfg"])
+        params = tf.params_from_numpy(case["params"], device)
+        placed = shd.place(params, mesh)
+        with compute_mesh(mesh):
+            loss, grads = value_and_grad(lambda p, b: tf.train_loss(p, b, cfg))(
+                placed, _tensors(case["batch"], device))
+            out["losses"][name] = {"loss": float(loss), "grads": _numpy(shd.gather(grads))}
+    # the reference's checkpoint, written on its (2, 2) mesh beside these ranks
+    jax_dir, deadline = inp["jax_ckpt"], time.time() + 300
+    while not os.path.exists(os.path.join(jax_dir, "step_00000001", "manifest.json")):
+        if time.time() > deadline:
+            raise TimeoutError(f"no reference checkpoint in {jax_dir}")
+        time.sleep(0.2)
+    case = inp["steps"][inp["elastic"]]
+    cfg = ArchConfig(**case["cfg"])
+    template = init_train_state(shd.place(tf.params_from_numpy(case["params"], device), mesh),
+                                opt)
+    with compute_mesh(mesh):
+        from_jax = ckpt.restore(jax_dir, 1, template, shardings=shd.placements(template, mesh))
+        out["from_jax"] = {"state": _numpy(shd.gather(from_jax)), "layouts": _layouts(from_jax)}
+    from repro_torch.dist.sharding import PartitionSpec as P
+    pipe = DataPipeline(lambda step: _tensors(inp["pipeline"], device), mesh,
+                        P("data", None))
+    it = pipe(start_step=0)
+    _, placed_batch = next(it)
+    it.close()
+    out["pipeline"] = {k: (v.to_local().cpu().numpy(), tuple(str(p) for p in v.placements))
+                       for k, v in placed_batch.items()}
+    return out
+
+
+def case_tp_step(rank, world, inp, device):
+    """One AdamW step of ``inp['cfg']`` on a (1, world) mesh (every rank a
+    model rank) from the carried weights: the loss, the gradient norm, the
+    whole new state and its layouts."""
+    from repro_torch.configs.base import ArchConfig
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist.context import compute_mesh
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import optim, schedule
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    cfg = ArchConfig(**inp["cfg"])
+    mesh = make_process_mesh(1, world, device)
+    opt = optim.adamw(weight_decay=0.0)
+    state = init_train_state(shd.place(tf.params_from_numpy(inp["params"], device), mesh), opt)
+    step = make_train_step(lambda p, b: tf.train_loss(p, b, cfg), opt,
+                           schedule.constant(inp["lr"]))
+    with compute_mesh(mesh):
+        new, metrics = step(state, _tensors(inp["batch"], device))
+        whole = _numpy(shd.gather(new))
+    return {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+            "state": whole, "layouts": _layouts(new)}
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+
+
+def torch_barrier():
+    import torch.distributed as dist
+    dist.barrier()
+
+
 CASES = {"psum": case_psum, "train": case_train, "loop": case_loop,
-         "spike_stats": case_spike_stats}
+         "spike_stats": case_spike_stats, "tp": case_tp, "tp_step": case_tp_step}
 
 
 def launch_main(inp_path, out_path):
