@@ -122,8 +122,10 @@ Run from the root of a checkout. Phases, one line or block each:
              remat="full" and AdamW, warmup-cosine to a peak lr of 1e-3 in 2
              steps, `token_batch` batches of
              8 x 512 through `DataPipeline` onto the card: 2 steps twice from
-             one state (losses, parameters and optimizer state must be
-             bit-identical), then 6 more (finite, the last loss below the
+             one state, the second time with the donated step
+             (``donate=True``, written into the state's buffers): losses,
+             parameters and optimizer state must be bit-identical; then 6
+             more (finite, the last loss below the
              first); host ms per step, tokens/s, peak allocated and
              nvidia-smi's used memory, one profiled step's device busy
              share, and the step's bound (its flops over the bf16 peak,
@@ -191,6 +193,29 @@ Run from the root of a checkout. Phases, one line or block each:
              (c) 13a's parameters saved on (2, 2), restored onto (4, 1) by
              the same ranks and onto this one process, every leaf
              bit-identical.
+14. dryrun — the dry run (`launch.dryrun`, `launch.costing`): (a)
+             `python -m repro_torch.launch.dryrun` as six subprocesses side
+             by side, started after phase 2 with ``--device cpu``, niced
+             (``--phase14``: started in phase 14, naming the card)
+             (`DRYRUN_CELLS`: qwen1.5-4b, granite-moe-3b-a800m and
+             llama4-maverick-400b-a17b at train_4k on the 16x16 pod mesh,
+             the cells the reference has records of; phi-3-vision-4.2b
+             prefill_32k; recurrentgemma-2b decode_32k; qwen1.5-4b
+             train_4k on the 2x16x16 mesh), each ending ``ok``, the three
+             records' params_total, params_active and model_flops equal
+             to ``results/dryrun/``'s; each cell's per-chip peak, totals,
+             roofline terms and trace seconds printed; (b) granite-moe-3b
+             at full width and full depth (32 layers), bf16, remat, AdamW,
+             11a's 8 x 512 batches, the donated step on the card: 2 steps
+             twice from one seeded state, bit-identical; the dry run of
+             that step on a 1-rank fake mesh (a seventh subprocess,
+             `--predict-14b`, started with them) predicts its peak (within
+             `PEAK_TOL` of max_memory_allocated over a step, less what
+             was allocated before the state was built), its FLOPs
+             (equal to `launch.costing.step_costs`' count on the card's
+             first step) and its roofline bound, printed beside the median
+             step time (CUDA events) and 11a's `train_step_bound`. The
+             subprocesses trace on the host while the card works.
 
 Phase 3 holds `spike_matmul_mapped` at spike densities 0.1, 0.33 and 1.0:
 within 1e-4 of the plain product, bit for bit the plain k-ascending sum
@@ -240,7 +265,7 @@ runs phases 1, 2 and 12 only (its solo engines served on the spot), and
 
     python3 chip_smoke.py --phase13
 
-phases 1, 2 and 13 only.
+phases 1, 2 and 13 only, and ``--phase14`` phases 1, 2 and 14.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero before it. Every per-shape row and serving figure also goes to
@@ -249,6 +274,7 @@ non-zero before it. Every per-shape row and serving figure also goes to
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -2359,13 +2385,15 @@ def check_lm_training(torch, errors, smi):
     # steps on an H100, and a 10-step warmup never reaches the peak in 8
     step = make_train_step(lambda p, b: tf.train_loss(p, b, cfg), opt,
                            warmup_cosine(TRAIN_LR, 2, steps))
+    donated = make_train_step(lambda p, b: tf.train_loss(p, b, cfg), opt,
+                              warmup_cosine(TRAIN_LR, 2, steps), donate=True)
     params = tf.init_params(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
     n_params = sum(leaf.numel() for leaf in tree_leaves(params))
     state0 = init_train_state(params, opt)
     del params
     pipe = DataPipeline(make_batch_fn(cfg, 0, TRAIN_BATCH, TRAIN_SEQ), device="cuda")
 
-    def run(state, start, n):
+    def run(state, start, n, step=step):
         losses, times, it = [], [], pipe(start)
         for _ in range(n):
             i, batch = next(it)
@@ -2379,11 +2407,13 @@ def check_lm_training(torch, errors, smi):
         return state, losses, times
 
     a, loss_a, ms_a = run(state0, 0, 2)
-    b, loss_b, ms_b = run(state0, 0, 2)
-    same = loss_a == loss_b and tree_equal(torch, a, b)
+    # the second run donated: written into state0's buffers, the first's bits
+    b, loss_b, ms_b = run(state0, 0, 2, donated)
+    same = loss_a == loss_b and tree_equal(torch, a, b) and b is state0
     del b, state0
     if not same:
-        errors.append(f"11a: two 2-step runs from one state differ: losses {loss_a} vs {loss_b}")
+        errors.append(f"11a: the donated 2-step run differs from the functional one from "
+                      f"one state: losses {loss_a} vs {loss_b}")
     state, loss_more, ms_more = run(a, 2, TRAIN_MORE)
     del a
     losses = loss_a + loss_more
@@ -2425,8 +2455,8 @@ def check_lm_training(torch, errors, smi):
     print(f"train {cfg.name} ({cfg.n_layers} of {get_arch(cfg.name).n_layers} layers, full "
           f"width, {cfg.dtype}, remat {cfg.remat}, {cfg.optimizer} at peak lr {TRAIN_LR}; "
           f"{n_params} parameters) [{smi}]: batch {TRAIN_BATCH} x "
-          f"{TRAIN_SEQ} through DataPipeline; 2-step runs from one state bit-identical "
-          f"(losses, parameters, optimizer state) {same}; losses "
+          f"{TRAIN_SEQ} through DataPipeline; 2-step runs from one state, functional and "
+          f"donated, bit-identical (losses, parameters, optimizer state) {same}; losses "
           f"{[round(v, 6) for v in losses]}")
     print(f"train {cfg.name}: host ms/step (synchronized) {[round(v, 3) for v in out['ms_per_step']]}, "
           f"median of steps 3-{steps - 1} {median:.3f} ms, {tokens_s:.0f} tokens/s; peak allocated "
@@ -3587,6 +3617,277 @@ def tp_rank(case, out_prefix):
     dist.destroy_process_group()
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the dry run and its prediction against the card
+# ---------------------------------------------------------------------------
+
+# 14a: the three cells the reference has records of (results/dryrun/), and
+# one prefill, one decode and one multi-pod cell
+DRYRUN_CELLS = (("qwen1.5-4b", "train_4k", "pod"), ("granite-moe-3b-a800m", "train_4k", "pod"),
+                ("llama4-maverick-400b-a17b", "train_4k", "pod"),
+                ("phi-3-vision-4.2b", "prefill_32k", "pod"),
+                ("recurrentgemma-2b", "decode_32k", "pod"),
+                ("qwen1.5-4b", "train_4k", "multipod"))
+# 14b: the predicted peak against max_memory_allocated over a step
+PEAK_TOL = 0.15
+
+
+def _cpu_env():
+    """A dry-run subprocess's environment: the port on the path, one
+    intra-op thread (the processes run side by side)."""
+    return dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="1",
+                MKL_NUM_THREADS="1")
+
+
+def start_dry_cells(out_dir, device, nice=0):
+    """14a's cells, each `launch.dryrun` in its own process, all at once
+    -> {cell: Popen}. They trace on fake tensors on the host; ``nice``
+    lowers their priority where they run beside other phases."""
+    os.makedirs(out_dir, exist_ok=True)
+    prefix = ["nice", "-n", str(nice)] if nice else []
+    return {(arch, shape, mesh): _child(
+        prefix + [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+                  shape, "--mesh", mesh, "--out", out_dir, "--device", device],
+        os.path.join(out_dir, f"{arch}_{shape}_{mesh}.log"))
+        for arch, shape, mesh in DRYRUN_CELLS}
+
+
+def _child(argv, log_path):
+    """A subprocess of this script's, its output to ``log_path`` (a pipe
+    nobody reads until phase 14 could fill), killed when the script exits
+    (a failed phase included) if it is still running."""
+    import atexit
+    log = open(log_path, "w")
+    proc = subprocess.Popen(argv, cwd=ROOT, env=_cpu_env(), stdout=log,
+                            stderr=subprocess.STDOUT, text=True)
+    proc.log_path = log_path
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def _wait(proc, timeout=900):
+    """(returncode, the end of its log) of a `_child`."""
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    with open(proc.log_path) as f:
+        return proc.returncode, f.read()[-3000:]
+
+
+def predict_14b(out_path):
+    """14b's prediction, one process: granite-moe-3b-a800m at full width
+    and depth on a 1-rank fake mesh, 11a's batch, the donated step: the
+    whole step's counts and memory and the pieces' roofline."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.dist.context import compute_mesh
+    from repro_torch.launch import costing, dryrun
+    from repro_torch.launch.mesh import make_fake_mesh
+    cfg = get_arch("granite-moe-3b-a800m")
+    shape = ShapeConfig("train_8x512", "train", TRAIN_SEQ, TRAIN_BATCH)
+    with make_fake_mesh(1, 1, device="cuda") as mesh:
+        raw, mem = dryrun._run_step(cfg, shape, mesh, "cuda")
+        with FakeTensorMode(), compute_mesh(mesh):
+            cost = costing.measure_pieces(costing.train_pieces(cfg, shape, mesh, "cuda"), mesh)
+    terms = costing.roofline(cost["totals"]["flops"], cost["totals"]["bytes"],
+                             cost["totals"]["coll_bytes"], 1)
+    peak = (mem["argument_bytes_per_chip"] + mem["output_bytes_per_chip"]
+            + mem["temp_bytes_per_chip"] - mem["alias_bytes_per_chip"])
+    with open(out_path, "w") as f:
+        json.dump({"step": raw, "memory": mem, "peak_bytes": peak, "totals": cost["totals"],
+                   "roofline": terms.as_dict(), "seconds": time.perf_counter() - t0}, f)
+
+
+def train_full_depth(torch, smi):
+    """14b on the card: granite-moe-3b-a800m at full width and depth, bf16,
+    remat, AdamW, the donated step, 11a's batches; 2 steps twice from one
+    seeded state (the first step of the first run counted by
+    `launch.costing.step_costs`). -> the runs' losses, per-step ms (CUDA
+    events), peak allocated over a step above what was allocated before
+    the state was built (``base``: earlier phases' leftovers), FLOPs
+    counted, bit-identity."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.launch.costing import step_costs
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optim import make_optimizer
+    from repro_torch.train.schedule import warmup_cosine
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    from repro_torch.train.tree import tree_leaves_with_path
+    cfg = get_arch("granite-moe-3b-a800m")
+    opt = make_optimizer(cfg.optimizer)
+    step = make_train_step(lambda p, b: tf.train_loss(p, b, cfg), opt,
+                           warmup_cosine(TRAIN_LR, 2, 4), donate=True)
+    pipe = DataPipeline(make_batch_fn(cfg, 0, TRAIN_BATCH, TRAIN_SEQ), device="cuda")
+    out = {"layers": cfg.n_layers, "ms": [], "peaks": [], "losses": []}
+
+    def run(count_first):
+        # what earlier phases still hold on the card is not this step's
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["base"] = torch.cuda.memory_allocated()
+        params = tf.init_params(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+        out["params"] = sum(x.numel() for _, x in tree_leaves_with_path(params))
+        state = init_train_state(params, opt)
+        del params
+        losses, it = [], pipe(0)
+        for i in range(2):
+            _, batch = next(it)
+            torch.cuda.synchronize()
+            if count_first and i == 0:
+                costs, (state, m) = step_costs(step, state, batch)
+                out["flops"] = costs["flops"]
+            else:
+                torch.cuda.reset_peak_memory_stats()
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                state, m = step(state, batch)
+                end.record()
+                torch.cuda.synchronize()
+                out["ms"].append(start.elapsed_time(end))
+                out["peaks"].append(torch.cuda.max_memory_allocated() - out["base"])
+            losses.append(m["loss"].item())
+        it.close()
+        out["losses"].append(losses)
+        return state
+
+    a = run(True)
+    a_host = [(path, x.to("cpu")) for path, x in tree_leaves_with_path(a)]
+    del a
+    torch.cuda.empty_cache()
+    b = run(False)
+    same = out["losses"][0] == out["losses"][1]
+    for (pa, xa), (pb, xb) in zip(a_host, tree_leaves_with_path(b)):
+        same = same and pa == pb and xa.dtype == xb.dtype and torch.equal(xa.to("cuda"), xb)
+    out["bit_identical"] = bool(same)
+    del b, a_host
+    torch.cuda.empty_cache()
+    return out
+
+
+DRY_RUN_DIR = os.path.join(ROOT, "build", "dryrun_torch")
+
+
+def start_prediction(out_dir):
+    """14b's prediction (`predict_14b`) in its own process."""
+    os.makedirs(out_dir, exist_ok=True)
+    return _child([sys.executable, SCRIPT, "--predict-14b",
+                   os.path.join(out_dir, "predict_14b.json")],
+                  os.path.join(out_dir, "predict_14b.log"))
+
+
+def check_dry_run(torch, errors, smi, started=None):
+    """Phase 14 (see the module docstring); ``started``: 14a's processes
+    and 14b's prediction if they were started earlier, else they start
+    here, the cells naming the card."""
+    import numpy as np
+    t0 = time.perf_counter()
+    out_dir = DRY_RUN_DIR
+    procs = dict(started or dict(start_dry_cells(out_dir, "cuda"),
+                                 predict=start_prediction(out_dir)))
+    torch.cuda.empty_cache()
+    card = train_full_depth(torch, smi)
+    t_card = time.perf_counter() - t0
+    runs = {name: _wait(proc) for name, proc in procs.items()}
+    out = {"cells": {}, "card": card, "seconds_card": t_card}
+
+    # 14a
+    for arch, shape, mesh in DRYRUN_CELLS:
+        rc, log = runs[(arch, shape, mesh)]
+        tag = f"{arch}_{shape}_{mesh}"
+        path = os.path.join(out_dir, f"{tag}.json")
+        rec = {}
+        if os.path.exists(path):
+            with open(path) as f:
+                rec = json.load(f)
+        if rc != 0 or rec.get("status") != "ok":
+            errors.append(f"14a: dry run of {tag} rc {rc}, status {rec.get('status')}: "
+                          f"{log[-600:]}")
+            continue
+        ref_path = os.path.join(ROOT, "results", "dryrun", f"{tag}.json")
+        match = None
+        if os.path.exists(ref_path):
+            with open(ref_path) as f:
+                ref = json.load(f)
+            match = all(rec[k] == ref[k] for k in ("params_total", "params_active",
+                                                   "model_flops"))
+            if not match:
+                errors.append(f"14a: {tag} counts differ from the reference's record")
+        out["cells"][tag] = {"trace_s": rec["trace_s"], "pieces_s": rec["pieces_s"],
+                             "memory": rec["memory"], "totals": rec["totals"],
+                             "roofline": rec["roofline"], "step_raw": rec["step_raw"],
+                             "params_total": rec["params_total"],
+                             "params_active": rec["params_active"],
+                             "model_flops": rec["model_flops"],
+                             "useful_flops_ratio": rec["useful_flops_ratio"],
+                             "reference_counts_equal": match}
+        r = rec["roofline"]
+        t = rec["totals"]
+        print(f"dry run {tag} [{smi}; the predicted per-chip costs of a {rec['chips']}-chip "
+              f"mesh]: ok, trace {rec['trace_s']} s + pieces {rec['pieces_s']} s "
+              f"({rec['memory']['method']}); peak {rec['memory']['peak_estimate_gib']} GiB "
+              f"per chip; totals {t['flops']:.4e} FLOP, {t['bytes']:.4e} bytes, "
+              f"{t['coll_bytes']:.4e} wire bytes; roofline comp {r['t_comp_s']:.4f} s, mem "
+              f"{r['t_mem_s']:.4f} s, coll {r['t_coll_s']:.4f} s ({r['dominant']}); params "
+              f"{rec['params_total']} / {rec['params_active']} active, model FLOPs "
+              f"{rec['model_flops']}"
+              + ("" if match is None else f"; reference's counts equal: {match}"))
+
+    # 14b
+    rc, log = runs["predict"]
+    pred_path = os.path.join(out_dir, "predict_14b.json")
+    if rc != 0 or not os.path.exists(pred_path):
+        errors.append(f"14b: the prediction failed (rc {rc}): {log[-600:]}")
+        out["seconds"] = time.perf_counter() - t0
+        return out
+    with open(pred_path) as f:
+        pred = json.load(f)
+    out["predicted"] = pred
+    peak = max(card["peaks"])
+    ms = float(np.median(card["ms"]))
+    bound_ms = pred["roofline"]["bound_s"] * 1e3
+    from repro_torch.configs import get_arch
+    lm_bound_ms = train_step_bound(get_arch("granite-moe-3b-a800m"), card["params"],
+                                   TRAIN_BATCH, TRAIN_SEQ)[0]
+    off = abs(pred["peak_bytes"] - peak) / peak
+    out.update({"measured_peak_bytes": peak, "peak_off": off, "median_ms": ms,
+                "roofline_bound_ms": bound_ms, "train_lm_bound_ms": lm_bound_ms})
+    if not card["bit_identical"]:
+        errors.append(f"14b: two 2-step runs from one state differ: {card['losses']}")
+    if not all(math.isfinite(v) for run in card["losses"] for v in run):
+        errors.append(f"14b: losses {card['losses']}")
+    if off > PEAK_TOL:
+        errors.append(f"14b: predicted peak {pred['peak_bytes']} bytes against "
+                      f"{peak} measured ({100 * off:.1f}% off)")
+    if card["flops"] != pred["step"]["flops"]:
+        errors.append(f"14b: the real step counts {card['flops']} FLOPs, the dry run "
+                      f"{pred['step']['flops']}")
+    print(f"train granite-moe-3b-a800m at full depth ({card['layers']} layers, full width, "
+          f"bf16, remat, AdamW, donated step, {card['params']} parameters) [{smi}]: batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}; 2-step runs from one state bit-identical "
+          f"{card['bit_identical']}; losses {card['losses']}")
+    print(f"train granite-moe-3b-a800m full depth: peak allocated over a step {peak} bytes "
+          f"({peak / 2**30:.3f} GiB, above {card['base']} allocated before the state) "
+          f"against the dry run's {pred['peak_bytes']} "
+          f"({pred['peak_bytes'] / 2**30:.3f} GiB; {100 * off:.1f}% off; on a 1-rank mesh in "
+          f"{pred['seconds']:.1f} s); FLOPs counted on the card {card['flops']:.6e}, "
+          f"predicted {pred['step']['flops']:.6e}, pieces {pred['totals']['flops']:.6e}")
+    print(f"train granite-moe-3b-a800m full depth: step ms (CUDA events) "
+          f"{[round(v, 3) for v in card['ms']]}, median {ms:.3f} ms; roofline bound "
+          f"{bound_ms:.3f} ms ({pred['roofline']['dominant']}: comp "
+          f"{pred['roofline']['t_comp_s'] * 1e3:.3f}, mem {pred['roofline']['t_mem_s'] * 1e3:.3f}"
+          f" ms), the step at {100 * bound_ms / ms:.1f}% of it; 11a's train_step_bound at "
+          f"{card['layers']} layers {lm_bound_ms:.3f} ms")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def check_tensor_parallel(torch, errors, smi):
     """Phase 13: 13a (qwen1.5-4b, (2, 2)) and 13b (granite-moe-3b, (1, 2))
     under torchrun, this script re-entering itself as each rank with
@@ -3741,6 +4042,14 @@ def main() -> None:
         print("sweep: every spike-matmul geometry bit-identical to the k-ascending sum; "
               "every int4 geometry within its bar of the plain version")
         return
+    if "--phase14" in sys.argv[1:]:
+        errors = []
+        dry = check_dry_run(torch, errors, smi_line)
+        print(f"phase 14 dry run: {len(errors)} errors in {dry['seconds']:.1f} s "
+              f"[{smi_line}]")
+        if errors:
+            fail("; ".join(errors))
+        return
     if "--phase13" in sys.argv[1:]:
         errors = []
         tensor_parallel = check_tensor_parallel(torch, errors, smi_line)
@@ -3766,6 +4075,12 @@ def main() -> None:
         if errors:
             fail("; ".join(errors))
         return
+
+    # 14a's dry-run cells trace on the host from here on, niced, beside
+    # phases 3-13 (fake tensors naming the host: no card memory held), and
+    # 14b's prediction (a minute, naming the card)
+    dry_runs = dict(start_dry_cells(DRY_RUN_DIR, "cpu", nice=10),
+                    predict=start_prediction(DRY_RUN_DIR))
 
     # 3. kernels
     qwen = get_arch("qwen1.5-4b").with_(dtype="float32")
@@ -3992,6 +4307,14 @@ def main() -> None:
     if errors:
         fail("; ".join(errors))
 
+    # 14. the dry run, and its prediction against the card
+    torch.cuda.empty_cache()
+    dry_run = check_dry_run(torch, errors, smi_line, dry_runs)
+    print(f"phase 14 dry run: {len(errors)} errors in {dry_run['seconds']:.1f} s "
+          f"(card {dry_run['seconds_card']:.1f}) [{smi_line}]")
+    if errors:
+        fail("; ".join(errors))
+
     csrc = "src/repro_torch/kernels/{}/csrc/{}.cu"
     sources = {"spike_matmul_mapped": csrc.format("spike_conv", "spike_matmul_mapped"),
                "lif_epilogue_scan": csrc.format("lif_step", "lif_epilogue_scan"),
@@ -4051,14 +4374,14 @@ def main() -> None:
                    "serve": served, "unfused": unfused, "train": trained, "lm": lm,
                    "precision": precision, "family": family, "fleet": fleet,
                    "lm_train": lm_train, "distribution": distribution,
-                   "tensor_parallel": tensor_parallel}, f,
+                   "tensor_parallel": tensor_parallel, "dry_run": dry_run}, f,
                   indent=1,
                   default=str)
     if any(math.isnan(k["ms"]) for k in kernels):
         fail("a kernel time is NaN")
     if any(k["launches"] == 0 for k in kernels):
         fail(f"a kernel was not launched on its main path: {kernels}")
-    print(f"phases 1-13 in {time.perf_counter() - t_start:.1f} s")
+    print(f"phases 1-14 in {time.perf_counter() - t_start:.1f} s")
     print(smi_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -4070,5 +4393,7 @@ if __name__ == "__main__":
         train_rank(sys.argv[2], sys.argv[3:])
     elif sys.argv[1:2] == ["--tp-rank"]:
         tp_rank(sys.argv[2], sys.argv[3])
+    elif sys.argv[1:2] == ["--predict-14b"]:
+        predict_14b(sys.argv[2])
     else:
         main()

@@ -36,14 +36,26 @@ over its axes. PyTorch splits that in two, and so does the port:
    one card, so ranks that share a card use gloo for their CUDA tensors,
    which stages every reduction through the host.
 
-Both expose ``axis_names`` and a ``shape`` mapping, so the sharding rules
-(`dist.sharding`) take either. The reference's ``make_production_mesh``
-(16x16 / 2x16x16) belongs to launch/costing, which is not ported yet.
+3. **Production mesh** (`make_production_mesh`; the dry run,
+   `launch.dryrun`). The reference's 16x16 ``('data', 'model')`` pod and
+   2x16x16 ``('pod', 'data', 'model')`` pair of pods, as a `ProcessMesh`
+   over ``torch.distributed``'s ``"fake"`` backend: this one process is
+   rank 0 of a world of 256 or 512, at position (0, 0) / (0, 0, 0) as
+   ``jax.make_mesh`` orders devices. A fake group's collectives do nothing
+   and return their input, so a program run on it shows rank 0's view:
+   its shapes, its ops and its collectives, never a value. The ``'pod'``
+   axis carries data parallelism only: gradients are averaged over
+   ``dist.sharding.dp_axes(mesh)``, ``('pod', 'data')``, whose ranks are
+   ``group('dp')``.
+
+All expose ``axis_names`` and a ``shape`` mapping, so the sharding rules
+(`dist.sharding`) take any of them.
 """
 from __future__ import annotations
 
+import contextlib
 import os
-from typing import Dict, Sequence
+from typing import Dict, Iterator, Sequence
 
 import torch
 import torch.distributed as dist
@@ -97,39 +109,60 @@ def make_data_mesh(n: int = 0, device="cuda") -> DataMesh:
 
 
 class ProcessMesh:
-    """``('data', 'model')`` over a ``torch.distributed`` group.
+    """``('data', 'model')`` (or ``('pod', 'data', 'model')``) over a
+    ``torch.distributed`` group.
 
     ``device`` is this rank's device, ``backend`` the group's, ``rank`` its
-    rank in the default group and ``data_rank`` / ``model_rank`` its
-    coordinates on the mesh. Built by `make_host_mesh` it is ``(world,
-    1)``: the data axis is the default group and nothing crosses the model
-    axis. Built by `make_process_mesh` it carries ``device_mesh`` (a
-    ``DeviceMesh`` named ``('data', 'model')``) and a process group per
-    axis.
+    rank in the default group and ``pod_rank`` / ``data_rank`` /
+    ``model_rank`` its coordinates on the mesh (rank r at ``(r // (data *
+    model), r // model % data, r % model)``, as ``jax.make_mesh`` orders
+    devices); ``dp_rank`` / ``dp_size`` its place on the data-parallel
+    axes ``('pod', 'data')`` together. Built by `make_host_mesh` it is
+    ``(world, 1)``: the data axis is the default group and nothing crosses
+    the model axis. With a model axis wider than 1 (`make_process_mesh`,
+    `make_production_mesh`) it carries ``device_mesh`` (a ``DeviceMesh``
+    with the mesh's dim names) and a process group per axis, and
+    ``group('dp')`` (the ranks of this rank's model index).
     """
 
-    axis_names = ("data", "model")
-
-    def __init__(self, device: torch.device, owns_group: bool = False, model: int = 1):
+    def __init__(self, device: torch.device, owns_group: bool = False, model: int = 1,
+                 pod: int = 1):
         world = dist.get_world_size()
-        if model < 1 or world % model:
-            raise ValueError(f"a model axis of {model} does not divide {world} ranks")
+        if model < 1 or pod < 1 or world % (model * pod):
+            raise ValueError(f"a ({pod} pods, model {model}) mesh does not divide {world} ranks")
+        if pod > 1 and model == 1:
+            raise ValueError("a 'pod' axis needs a model axis wider than 1")
+        data = world // (model * pod)
+        self.axis_names = ("pod", "data", "model") if pod > 1 else ("data", "model")
         self.device = device
         self.backend = dist.get_backend()
         self.rank = dist.get_rank()
-        self.data_rank, self.model_rank = divmod(self.rank, model)
-        self.shape: Dict[str, int] = {"data": world // model, "model": model}
+        self.pod_rank, rest = divmod(self.rank, data * model)
+        self.data_rank, self.model_rank = divmod(rest, model)
+        self.shape: Dict[str, int] = dict(({"pod": pod} if pod > 1 else {}),
+                                          data=data, model=model)
+        self.dp_size = pod * data
+        self.dp_rank = self.pod_rank * data + self.data_rank
         self._owns_group = owns_group
         self.device_mesh = None
-        self._groups = {"data": dist.group.WORLD}
+        self._groups = {"data": dist.group.WORLD, "dp": dist.group.WORLD}
         if model > 1:
             from torch.distributed.device_mesh import DeviceMesh
-            self.device_mesh = DeviceMesh(device.type, torch.arange(world).reshape(
-                world // model, model), mesh_dim_names=self.axis_names)
+            dims = tuple(self.shape[a] for a in self.axis_names)
+            self.device_mesh = DeviceMesh(device.type, torch.arange(world).reshape(dims),
+                                          mesh_dim_names=self.axis_names)
             self._groups = {a: self.device_mesh.get_group(a) for a in self.axis_names}
+            if pod > 1:
+                # every rank builds every model index's group, in order
+                mine, _ = dist.new_subgroups_by_enumeration(
+                    [list(range(m, world, model)) for m in range(model)])
+                self._groups["dp"] = mine
+            else:
+                self._groups["dp"] = self._groups["data"]
 
     def group(self, axis: str = "data"):
-        """The process group of this rank's line along ``axis``."""
+        """The process group of this rank's line along ``axis`` (``'dp'``:
+        the data-parallel axes together)."""
         if axis not in self._groups:
             raise ValueError(f"this mesh has no process group for the {axis!r} axis "
                              f"(a model axis of 1 has none; see make_process_mesh)")
@@ -187,3 +220,35 @@ def make_process_mesh(data: int, model: int, device="cuda") -> ProcessMesh:
     if model == 1:
         return mesh
     return ProcessMesh(mesh.device, owns_group=mesh._owns_group, model=model)
+
+
+@contextlib.contextmanager
+def make_fake_mesh(data: int, model: int, pod: int = 1, device="cuda"
+                   ) -> Iterator[ProcessMesh]:
+    """A ``(pod, data, model)`` mesh (no ``'pod'`` axis when ``pod`` is
+    1) over a ``"fake"`` process group of ``pod * data * model`` ranks of
+    which this process is rank 0 (module docstring).
+
+    A context manager: the fake group is the default group while it is
+    open and is destroyed on exit, so meshes can follow one another. It
+    refuses to start while a default group is running. On "cuda" the mesh
+    names the card (and raises on a machine without one), on "cpu" the
+    host; no tensor is placed by it."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dev = resolve_device(device)
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already running: a fake mesh is a group of "
+                           "its own, built in a process without one")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=pod * data * model)
+    try:
+        yield ProcessMesh(dev, model=model, pod=pod)
+    finally:
+        dist.destroy_process_group()
+
+
+def make_production_mesh(multi_pod: bool = False, device="cuda"):
+    """The reference's production mesh as this process's view of it, a
+    context manager (`make_fake_mesh`): 16x16 ``('data', 'model')`` (256
+    ranks) or, with ``multi_pod``, 2x16x16 ``('pod', 'data', 'model')``
+    (512)."""
+    return make_fake_mesh(16, 16, 2 if multi_pod else 1, device)

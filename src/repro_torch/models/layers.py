@@ -25,9 +25,12 @@ from ..device import resolve_device
 def _trunc_normal(gen: torch.Generator, shape: Tuple[int, ...], scale: float, dtype,
                   device) -> torch.Tensor:
     """Normal truncated to [-2, 2], times ``scale``, drawn in float32 on
-    ``device`` (the generator's device) and cast to ``dtype``."""
+    ``device`` (the generator's device) and cast to ``dtype``. A fake
+    tensor (the dry run's shapes) has no values to draw."""
+    from torch._subclasses.fake_tensor import is_fake
     w = torch.empty(shape, dtype=torch.float32, device=resolve_device(device))
-    torch.nn.init.trunc_normal_(w, a=-2.0, b=2.0, generator=gen)
+    if not is_fake(w):
+        torch.nn.init.trunc_normal_(w, a=-2.0, b=2.0, generator=gen)
     return w.mul_(scale).to(dtype)
 
 

@@ -360,6 +360,28 @@ def _vocab_parallel_ce(tp: TPAxis, logits: torch.Tensor, labels: torch.Tensor
     return torch.mean(logz - tp.reduce(gold * inside))
 
 
+def _blocks_tp(tp: TPAxis, cfg: ArchConfig, x: torch.Tensor, aux: torch.Tensor, kinds,
+               block_params, seq: bool, split_at_end: bool
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``kinds`` blocks on one model rank, ``x`` entering split along the
+    sequence where ``seq`` (`_forward_tp`): a block gathers it, an
+    ``attn_mlp`` / ``attn_moe`` block splits it again (``cfg.sp_blocks``),
+    and it leaves split (``split_at_end``) or whole."""
+    split = seq
+    for kind, p in zip(kinds, block_params):
+        if split:
+            x, split = tp.gather(x, 1), False
+        x, a = _apply_block_tp(tp, kind, p, x, cfg)
+        aux = aux + a
+        if seq and cfg.sp_blocks and kind in ("attn_mlp", "attn_moe"):
+            x, split = tp.split(x, 1), True
+    if split_at_end and seq and not split:
+        x = tp.split(x, 1)
+    elif not split_at_end and split:
+        x = tp.gather(x, 1)
+    return x, aux
+
+
 def _forward_tp(tp: TPAxis, params: Dict, batch: Dict, cfg: ArchConfig
                 ) -> Tuple[torch.Tensor, torch.Tensor, bool]:
     """`forward` on one model rank -> (logits, aux, vocab-sharded).
@@ -374,19 +396,7 @@ def _forward_tp(tp: TPAxis, params: Dict, batch: Dict, cfg: ArchConfig
     seq = x.shape[1] % tp.size == 0
 
     def blocks(x, aux, kinds, block_params, split_at_end):
-        split = seq
-        for kind, p in zip(kinds, block_params):
-            if split:
-                x, split = tp.gather(x, 1), False
-            x, a = _apply_block_tp(tp, kind, p, x, cfg)
-            aux = aux + a
-            if seq and cfg.sp_blocks and kind in ("attn_mlp", "attn_moe"):
-                x, split = tp.split(x, 1), True
-        if split_at_end and seq and not split:
-            x = tp.split(x, 1)
-        elif not split_at_end and split:
-            x = tp.gather(x, 1)
-        return x, aux
+        return _blocks_tp(tp, cfg, x, aux, kinds, block_params, seq, split_at_end)
 
     def period_fn(x, aux, slot_params):
         return blocks(x, aux, cfg.pattern,
@@ -408,8 +418,24 @@ def _forward_tp(tp: TPAxis, params: Dict, batch: Dict, cfg: ArchConfig
     return logits, aux, vocab_sharded
 
 
+def _data_rows(batch: Dict, mesh) -> Dict:
+    """This rank's rows of a serving batch where the data-parallel axes
+    divide it, else the whole batch on every rank (`dist.sharding.batch_spec`'s
+    rule)."""
+    from ..train.train_step import local_rows
+    rows = batch["tokens"].shape[0]
+    if mesh.dp_size == 1 or rows % mesh.dp_size:
+        return batch
+    return local_rows(batch, mesh.dp_rank, mesh.dp_size)
+
+
 def prefill_step(params: Dict, batch: Dict, cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Prefill: forward over the prompt, returning last-position logits."""
+    """Prefill: forward over the prompt, returning last-position logits.
+    Under a tensor-parallel mesh, this rank's rows of the batch (its
+    position on the data-parallel axes)."""
+    tp = tp_axis()
+    if tp is not None:
+        batch = _data_rows(batch, tp.mesh)
     logits, aux = forward(params, batch, cfg)
     return logits[:, -1:], aux
 
@@ -519,18 +545,41 @@ def decode_step(params: Dict, cache: Dict, batch: Dict, pos, cfg: ArchConfig,
 
     active: optional bool [B]; rows with active=False advance no cache (KV
     entry or recurrent state). Updates ``cache`` in place and returns
-    (logits [B,1,V], cache)."""
-    x = params["embed"]["w_tok"][batch["tokens"]]
+    (logits [B,1,V], cache).
+
+    Under a tensor-parallel mesh (placed ``params``, a ``cache`` of
+    DTensors split over the data-parallel axes, `dist.sharding.cache_specs`)
+    the step has no tensor-parallel blocks: each block's weights are
+    gathered whole over the model axis when it runs (`TPAxis.full`), and
+    this rank decodes its rows of the batch (its cache shards) with the
+    one-device blocks. The logits are this rank's rows."""
+    tp = tp_axis()
+    if tp is None:
+        return _decode_layers(params, cache, batch, pos, cfg, active, lambda tree: tree)
+    from ..dist.context import compute_mesh
+    from ..dist.sharding import local
+    params, cache = unwrap(params), local(cache)
+    batch = _data_rows(batch, tp.mesh)
+    with compute_mesh(None):             # whole weights: the one-device blocks
+        return _decode_layers(params, cache, batch, pos, cfg, active, tp.full)
+
+
+def _decode_layers(params: Dict, cache: Dict, batch: Dict, pos, cfg: ArchConfig, active,
+                   full) -> Tuple[torch.Tensor, Dict]:
+    """`decode_step`'s layers, each block's weights through ``full``."""
+    x = full(params["embed"]["w_tok"])[batch["tokens"]]
     for i in range(cfg.n_periods):
         slot_params = _period(params["periods"], i)
         slot_cache = _period(cache["periods"], i)
         for si, kind in enumerate(cfg.pattern):
-            x, _ = _decode_block(kind, slot_params[f"slot{si}"], x, slot_cache[f"slot{si}"],
-                                 pos, cfg, active)
+            x, _ = _decode_block(kind, full(slot_params[f"slot{si}"]), x,
+                                 slot_cache[f"slot{si}"], pos, cfg, active)
     for i, kind in enumerate(cfg.tail):
-        x, _ = _decode_block(kind, params["tail"][i], x, cache["tail"][i], pos, cfg, active)
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return _unembed(params, x, cfg), cache
+        x, _ = _decode_block(kind, full(params["tail"][i]), x, cache["tail"][i], pos, cfg,
+                             active)
+    x = rmsnorm(x, full(params["final_norm"]), cfg.norm_eps)
+    head = {k: full(params[k]) for k in ("embed", "lm_head") if k in params}
+    return _unembed(head, x, cfg), cache
 
 
 def decode_chunk(params: Dict, cache: Dict, tokens: torch.Tensor, pos0, take,

@@ -241,17 +241,37 @@ def _slstm_step(p: Dict, n_heads: int, carry, wx_t):
     return c_t, n_t, m_t, h_t
 
 
+# Steps the sLSTM loop runs when set (None: all of them); the outputs then
+# repeat the last step's h. The dry run sets it: `launch.costing` to 1
+# while it measures a period (the other S - 1 steps are its ``slstm_step``
+# piece), `launch.dryrun` to 1 and 2 to extrapolate a long loop. A plain
+# global, not a context variable: a checkpointed period's recompute runs on
+# autograd's device thread.
+TRACE_STEPS = None
+
+
+def _slstm_scan(p: Dict, n_heads: int, carry, wx: torch.Tensor, s: int) -> torch.Tensor:
+    """The recurrence over the ``s`` positions of ``wx`` -> stacked h [B, S, d].
+    The positions are taken with one ``unbind``, whose backward stacks the
+    steps' gradients once (indexing ``wx[:, t]`` would write a zero-filled
+    [B, S, 4d] gradient at every step and sum them)."""
+    steps = s if TRACE_STEPS is None else min(s, TRACE_STEPS)
+    wx_t = wx.unbind(1)
+    hs = []
+    for t in range(steps):
+        carry = _slstm_step(p, n_heads, carry, wx_t[t])
+        hs.append(carry[3])
+    hs.extend(hs[-1:] * (s - steps))
+    return torch.stack(hs, dim=1)
+
+
 def slstm_block(p: Dict, x: torch.Tensor, n_heads: int) -> torch.Tensor:
     """Sequential sLSTM over [B, S, d] (true recurrence)."""
     b, s, d = x.shape
     wx = (x @ p["w_in"]).float()                              # [B, S, 4d]
     zero = torch.zeros((b, d), device=x.device)
     carry = (zero, zero, torch.full((b, d), NEG, device=x.device), zero)
-    hs = []
-    for t in range(s):
-        carry = _slstm_step(p, n_heads, carry, wx[:, t])
-        hs.append(carry[3])
-    return torch.stack(hs, dim=1).to(x.dtype) @ p["w_out"]
+    return _slstm_scan(p, n_heads, carry, wx, s).to(x.dtype) @ p["w_out"]
 
 
 def slstm_block_tp(tp, p: Dict, x: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -276,11 +296,8 @@ def slstm_block_tp(tp, p: Dict, x: torch.Tensor, n_heads: int) -> torch.Tensor:
     wx = (tp.copy(x) @ tp.copy(tp.param(p["w_in"], None))[:, cols]).float()   # [B, S, 4 ld]
     zero = torch.zeros((b, ld), device=x.device)
     carry = (zero, zero, torch.full((b, ld), NEG, device=x.device), zero)
-    hs = []
-    for t in range(s):
-        carry = _slstm_step(mine, lh, carry, wx[:, t])
-        hs.append(carry[3])
-    return tp.reduce(torch.stack(hs, dim=1).to(x.dtype) @ tp.param(p["w_out"], -2))
+    return tp.reduce(_slstm_scan(mine, lh, carry, wx, s).to(x.dtype)
+                     @ tp.param(p["w_out"], -2))
 
 
 def slstm_init_state(batch: int, d: int, device="cuda", lead: Tuple[int, ...] = ()

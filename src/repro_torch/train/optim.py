@@ -9,10 +9,12 @@ Every update is written in the reference's order of operations, so a step
 rounds as the JAX package's does (``torch.optim.AdamW`` orders its update
 differently). ``zero1_spec`` is the ZeRO-1 rule for one optimizer leaf
 (``dist.sharding.zero1_opt_specs`` is its tree form); nothing places
-optimizer state by it. Under tensor parallelism (`train.train_step`) SGD
-and AdamW update each rank's shards elementwise, their moments laid out as
-their parameters; `clip_by_global_norm` counts each shard once
-(``shards``).
+optimizer state by it, apart from Adafactor's moments under tensor
+parallelism. There (`train.train_step`) SGD and AdamW update each rank's
+shards elementwise, their moments laid out as their parameters; Adafactor's
+moments are stored by ``dist.sharding.zero1_opt_specs`` and its row,
+column and RMS means are taken over the whole leaf (`LeafMeans`);
+`clip_by_global_norm` counts each shard once (``shards``).
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from .tree import tree_leaves, tree_leaves_with_path, tree_map, tree_map_with_pa
 class Optimizer(NamedTuple):
     init: Callable[[Any], Any]
     update: Callable[[Any, Any, Any, torch.Tensor], Tuple[Any, Any]]
+    name: str = ""
 
 
 def apply_updates(params, updates):
@@ -64,11 +67,18 @@ def _leaves_like(tree, other):
     return [by_path[path] for path, _ in tree_leaves_with_path(tree)]
 
 
-def clip_by_global_norm(grads, max_norm: float, shards=None):
+def clip_scale(grads, max_norm: float, shards=None):
+    """(the factor `clip_by_global_norm` multiplies every gradient by, the
+    global norm)."""
     norm = global_norm(grads, shards)
     # a tensor numerator: `float / tensor` is reciprocal-then-multiply in torch
     scale = torch.clamp(torch.full_like(norm, max_norm) / torch.clamp(norm, min=1e-9),
                         max=1.0)
+    return scale, norm
+
+
+def clip_by_global_norm(grads, max_norm: float, shards=None):
+    scale, norm = clip_scale(grads, max_norm, shards)
     return tree_map(lambda g: g * scale, grads), norm
 
 
@@ -89,7 +99,7 @@ def sgd(momentum: float = 0.9, weight_decay: float = 0.0) -> Optimizer:
         upd = tree_map(lambda m, p: -lr * (m + weight_decay * p.to(torch.float32)), mu, params)
         return upd, {"mu": mu}
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, "sgd")
 
 
 # ---------------------------------------------------------------------------
@@ -116,17 +126,44 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
             m, v, params)
         return upd, {"m": m, "v": v, "t": t}
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, "adamw")
 
 
 # ---------------------------------------------------------------------------
 # Adafactor (factored second moment; memory ~ O(rows+cols))
 # ---------------------------------------------------------------------------
 
+class LeafMeans:
+    """The means Adafactor's update takes over one leaf ``g`` (one
+    process: ``torch.mean``). Under tensor parallelism a rank holds a shard
+    of the leaf, and `train.train_step` passes means taken over the whole
+    leaf instead (a partial sum, all-reduced, over the whole extent)."""
+
+    def row(self, g2):
+        """Over the leaf's last dim."""
+        return torch.mean(g2, dim=-1)
+
+    def col(self, g2):
+        """Over the leaf's dim -2."""
+        return torch.mean(g2, dim=-2)
+
+    def row_mean(self, vr):
+        """Of the row moments over their last dim (the leaf's dim -2)."""
+        return torch.mean(vr, dim=-1, keepdim=True)
+
+    def all(self, u2):
+        """Over the whole leaf."""
+        return torch.mean(u2)
+
+
+_PLAIN_MEANS = LeafMeans()
+
+
 def adafactor(decay: float = 0.8, eps: float = 1e-30, clip_thresh: float = 1.0,
               weight_decay: float = 0.0) -> Optimizer:
     """Simplified Adafactor (Shazeer & Stern): factored v for >=2D params,
-    no momentum."""
+    no momentum. ``update(..., mean=)`` takes a `LeafMeans` (one leaf's
+    update; None: one process's)."""
 
     def _factored(shape):
         return len(shape) >= 2
@@ -142,18 +179,18 @@ def adafactor(decay: float = 0.8, eps: float = 1e-30, clip_thresh: float = 1.0,
         return {"s": tree_map(leaf, params),
                 "t": torch.zeros((), dtype=torch.int32, device=device)}
 
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, mean=None):
         t = state["t"] + 1
         beta = 1.0 - (t.to(torch.float32) + 1.0) ** (-decay)
+        avg = mean or _PLAIN_MEANS
 
         def leaf(g, s, p):
             g = g.to(torch.float32)
             g2 = torch.square(g) + eps
             if _factored(p.shape):
-                vr = beta * s["vr"] + (1 - beta) * torch.mean(g2, dim=-1)
-                vc = beta * s["vc"] + (1 - beta) * torch.mean(g2, dim=-2)
-                rfac = torch.rsqrt(vr / torch.clamp(
-                    torch.mean(vr, dim=-1, keepdim=True), min=eps) + eps)
+                vr = beta * s["vr"] + (1 - beta) * avg.row(g2)
+                vc = beta * s["vc"] + (1 - beta) * avg.col(g2)
+                rfac = torch.rsqrt(vr / torch.clamp(avg.row_mean(vr), min=eps) + eps)
                 cfac = torch.rsqrt(vc + eps)
                 u = g * rfac[..., None] * cfac[..., None, :]
                 ns = {"vr": vr, "vc": vc}
@@ -162,7 +199,7 @@ def adafactor(decay: float = 0.8, eps: float = 1e-30, clip_thresh: float = 1.0,
                 u = g * torch.rsqrt(v + eps)
                 ns = {"v": v}
             # update clipping (RMS <= clip_thresh)
-            rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-12)
+            rms = torch.sqrt(avg.all(torch.square(u)) + 1e-12)
             u = u / torch.clamp(rms / clip_thresh, min=1.0)
             return -lr * (u + weight_decay * p.to(torch.float32)), ns
 
@@ -172,7 +209,7 @@ def adafactor(decay: float = 0.8, eps: float = 1e-30, clip_thresh: float = 1.0,
         return (tree_map(lambda p, o: o[0], params, out),
                 {"s": tree_map(lambda p, o: o[1], params, out), "t": t})
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, "adafactor")
 
 
 def make_optimizer(name: str, **kw) -> Optimizer:

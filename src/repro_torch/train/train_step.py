@@ -20,17 +20,24 @@ Either way every rank ends a step with the same parameter and optimizer
 bits.
 
 Tensor parallelism: under a ``(data, model)`` mesh with more than one
-model rank (`launch.mesh.make_process_mesh`), the state holds the placed
-tree (`dist.sharding.place`: parameters and their SGD / AdamW moments as
-DTensors, each rank its `param_spec` shards). The step takes the global
-batch (or a `data.pipeline.DataPipeline` batch of this rank's rows), the
-model computes on the shards (`models.transformer`), each gradient comes
-back as its parameter's shard (held to ``grad_shardings`` where given),
-the gradients and loss are averaged over the ``'data'`` group in rank
-order as above, the global norm counts each shard once, and the
-optimizer updates each shard. The data replicas of every shard end the
-step with the same bits; shards of different model ranks differ by
-design.
+model rank (`launch.mesh.make_process_mesh`; ``(pod, data, model)`` for
+the dry run's production mesh), the state holds the placed tree
+(`dist.sharding.place`: parameters and their SGD / AdamW moments as
+DTensors, each rank its `param_spec` shards; Adafactor's moments laid out
+by `dist.sharding.zero1_opt_specs`, `init_train_state`). The step takes
+the global batch (or a `data.pipeline.DataPipeline` batch of this rank's
+rows), the model computes on the shards (`models.transformer`), each
+gradient comes back as its parameter's shard (held to ``grad_shardings``
+where given), the gradients and loss are averaged over the data-parallel
+axes' group (``('pod', 'data')``) in rank order as above, the global norm
+counts each shard once, and the optimizer updates each shard; Adafactor
+takes its row, column and RMS means over whole leaves (`_ShardMeans`).
+The data replicas of every shard end the step with the same bits; shards
+of different model ranks differ by design.
+
+``make_train_step(donate=True)`` is the counterpart of the reference's
+donated step: each new leaf is written into the input state's buffer as
+it is computed (`_update_by_leaf`), with the functional step's bits.
 
 Steps run under `deterministic`: the same state and batch give
 bit-identical parameters and optimizer state run to run on the card too
@@ -48,7 +55,7 @@ import torch.distributed as dist
 from ..dist.context import compute_mesh, current_mesh
 from ..dist.sharding import local
 from ..launch.mesh import ProcessMesh
-from .optim import Optimizer, apply_updates, clip_by_global_norm
+from .optim import LeafMeans, Optimizer, apply_updates, clip_by_global_norm, clip_scale
 from .tree import tree_leaves_with_path, tree_map, tree_map_with_path
 
 
@@ -78,14 +85,41 @@ def init_train_state(params: Any, opt: Optimizer, *, compress: bool = False) -> 
     """Train state: ``{"params", "opt", "step"}`` (``step`` an int32 0-d tensor
     on the params' device). With ``compress=True`` it also carries
     ``grad_err``, zero float32 residuals shaped like ``params``: the
-    rank-local error-feedback state a ``compress_axis`` step consumes."""
+    rank-local error-feedback state a ``compress_axis`` step consumes.
+
+    From placed parameters (`dist.sharding.place`), SGD's and AdamW's
+    moments are laid out as their parameters, and Adafactor's moments
+    (``s``: per parameter ``vr`` / ``vc``, or ``v``) as
+    `dist.sharding.zero1_opt_specs` gives them: on their own shapes, the
+    first divisible dim over ``'data'``."""
     device = tree_leaves_with_path(params)[0][1].device
-    state = {"params": params, "opt": opt.init(params),
+    state = {"params": params, "opt": _place_factored(opt.init(params), params),
              "step": torch.zeros((), dtype=torch.int32, device=device)}
     if compress:
         from ..dist.compression import init_error_state
         state["grad_err"] = init_error_state(params)
     return state
+
+
+def _place_factored(opt_state: Dict, params) -> Dict:
+    """Adafactor's ``s`` moments placed by `zero1_opt_specs` where the
+    parameters are DTensors; any other state as it is."""
+    from torch.distributed.tensor import DTensor
+    from ..dist.sharding import _from_full, full_tensor, to_placements, zero1_opt_specs
+    leaves = [x for _, x in tree_leaves_with_path(params)]
+    dtensors = [x for x in leaves if isinstance(x, DTensor)]
+    if not dtensors or "s" not in opt_state:
+        return opt_state
+    dm = dtensors[0].device_mesh
+
+    class _View:                          # the rules read axis names and sizes
+        axis_names = tuple(dm.mesh_dim_names)
+        shape = {n: dm.size(i) for i, n in enumerate(dm.mesh_dim_names)}
+
+    specs = zero1_opt_specs(opt_state["s"], {}, _View)
+    placed = tree_map(lambda x, spec: _from_full(full_tensor(x), dm, to_placements(spec, dm)),
+                      opt_state["s"], specs)
+    return dict(opt_state, s=placed)
 
 
 def data_mesh() -> Optional[ProcessMesh]:
@@ -104,9 +138,9 @@ def tp_mesh() -> Optional[ProcessMesh]:
 
 def _rewrap(new, like):
     """``new`` (a local shard) as a DTensor laid out as ``like``; plain
-    tensors pass."""
+    tensors, and DTensors already, pass."""
     from torch.distributed.tensor import DTensor
-    if not isinstance(like, DTensor):
+    if not isinstance(like, DTensor) or isinstance(new, DTensor):
         return new
     return DTensor.from_local(new, like.device_mesh, like.placements, run_check=False,
                               shape=like.shape, stride=like.stride())
@@ -124,14 +158,15 @@ def _hold(g, placements):
 
 def _batch_rows(batch: Dict, mesh: ProcessMesh) -> Dict:
     """This rank's rows: a `DataPipeline` batch on a mesh already is (its
-    DTensor leaves' local shards), a global batch is cut by data rank."""
+    DTensor leaves' local shards), a global batch is cut by the rank's
+    place on the data-parallel axes (``('pod', 'data')``)."""
     from torch.distributed.tensor import DTensor
     leaves = [x for _, x in tree_leaves_with_path(batch)]
     if any(isinstance(x, DTensor) for x in leaves):
         return tree_map(lambda x: x.to_local() if isinstance(x, DTensor) else x, batch)
-    if mesh.shape["data"] == 1:
+    if mesh.dp_size == 1:
         return batch
-    return local_rows(batch, mesh.data_rank, mesh.shape["data"])
+    return local_rows(batch, mesh.dp_rank, mesh.dp_size)
 
 
 def local_rows(batch: Dict, rank: int, n: int) -> Dict:
@@ -193,20 +228,72 @@ def _axis_group(axis: str):
         "compute_mesh(launch.mesh.make_host_mesh()) or through shard_map_compressed_step")
 
 
+def _contiguous_stride(shape) -> Tuple[int, ...]:
+    stride, acc = [], 1
+    for n in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= n
+    return tuple(reversed(stride))
+
+
+def _unstack(x):
+    """A stacked ``[n_periods, ...]`` leaf as a tuple of its periods
+    (views; a DTensor's periods as DTensors of its layout less dim 0,
+    which the rules never shard)."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(x, DTensor):
+        return tuple(x[i] for i in range(x.shape[0]))
+    if any(isinstance(pl, Shard) and pl.dim == 0 for pl in x.placements):
+        raise ValueError("a stacked leaf sharded along its period axis")
+    pls = [Shard(pl.dim - 1) if isinstance(pl, Shard) else pl for pl in x.placements]
+    loc, shape = x.to_local(), x.shape[1:]
+    return tuple(DTensor.from_local(loc[i], x.device_mesh, pls, run_check=False, shape=shape,
+                                    stride=_contiguous_stride(shape))
+                 for i in range(x.shape[0]))
+
+
+def _restack(parts, like):
+    """The periods' gradients ``parts`` as one leaf laid out as ``like``."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(like, DTensor):
+        return torch.stack(list(parts))
+    stacked = torch.stack([g.to_local() for g in parts])
+    return DTensor.from_local(stacked, like.device_mesh, like.placements, run_check=False,
+                              shape=like.shape, stride=like.stride())
+
+
 def value_and_grad(loss_fn: Callable[[Any, Dict], torch.Tensor]):
     """``loss_fn(params, batch) -> scalar`` as ``(params, batch) -> (loss, grads)``,
     the loss detached and ``grads`` a tree like ``params`` (zeros where the
     loss does not depend on a leaf). ``params`` themselves are not modified.
-    Runs under `deterministic`."""
+    Runs under `deterministic`.
+
+    An LM tree's stacked period leaves (``params['periods']``) reach the
+    loss as tuples of per-period views, each its own autograd leaf, and
+    each gradient is stacked once at the end: indexing a stacked leaf that
+    requires grad would make every period's backward write a zero-filled
+    gradient of the whole stack and sum them (traffic quadratic in the
+    depth). The gradients' values are the same."""
     def fn(params, batch):
-        leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        stacked = isinstance(params, dict) and isinstance(params.get("periods"), dict)
+        detached = tree_map(lambda p: p.detach(), params)
+        if stacked:
+            detached = dict(detached, periods=tree_map(_unstack, detached["periods"]))
+        leaves = tree_map(lambda p: p.detach().requires_grad_(True), detached)
         with torch.enable_grad(), deterministic():
             loss = loss_fn(leaves, batch)
             paths = tree_leaves_with_path(leaves)
             grads = torch.autograd.grad(loss, [leaf for _, leaf in paths], allow_unused=True)
         by_id = {id(leaf): g if g is not None else torch.zeros_like(leaf)
                  for (_, leaf), g in zip(paths, grads)}
-        return loss.detach(), tree_map(lambda leaf: by_id[id(leaf)], leaves)
+        del grads
+        out = tree_map(lambda leaf: by_id.pop(id(leaf)), leaves)
+        if stacked:                  # each leaf's periods released once stacked
+            periods = out.pop("periods")
+            out["periods"] = tree_map_with_path(
+                lambda path, like: _restack(_subtree(periods, path[:-1]).pop(path[-1]), like),
+                params["periods"])
+        return loss.detach(), out
     return fn
 
 
@@ -221,13 +308,23 @@ def make_train_step(
     grad_dtype: str = "",
     compress_axis: str = "",
     compress_per_channel: bool = False,
+    donate: bool = False,
 ) -> Callable[[Dict, Dict], Tuple[Dict, Dict]]:
     """loss_fn(params, batch) -> scalar. With ``accum_steps`` > 1 the batch's
     leading dim is split into that many microbatches, whose gradients and
     losses are averaged in float32 (one backward each, so memory holds one
     microbatch's graph). The returned step is ``(state, batch) -> (state,
-    metrics)`` and leaves its input state unchanged; it runs under
-    `deterministic`.
+    metrics)``; it runs under `deterministic`.
+
+    donate: False (the default) leaves the input state unchanged and
+    returns a new one. True is the counterpart of the reference's
+    ``jax.jit(step, donate_argnums=(0,))``: the step writes each new
+    parameter and optimizer leaf into the input state's buffer as soon as
+    that leaf's update is computed (one leaf's temporaries alive at a time,
+    never a second copy of the state), writes the optimizer's counters and
+    the step counter last, and returns the input state object itself. The
+    arithmetic is the functional step's, in its order: the bits are the
+    same.
 
     grad_dtype: cast each gradient to this dtype (e.g. "bfloat16") before
     the cross-rank reduction, as the reference does.
@@ -248,14 +345,19 @@ def make_train_step(
     (`dist.sharding.placements`; None entries: as computed): each DTensor
     gradient is held to its entry's layout (relaid where it differs), and
     the update then uses its parameter's. Plain-tensor gradients (one
-    device, a data-parallel mesh) have no layout to hold."""
+    device, a data-parallel mesh) have no layout to hold.
+
+    The step's second half is exposed as ``step.apply_grads(state, loss,
+    grads)``: from gradients as the backward leaves them (before their
+    layouts are held) to the new state and metrics, ``loss`` None for a
+    part of a model that has none. `launch.costing` builds its pieces
+    from it."""
     if compress_per_channel and not compress_axis:
         raise ValueError("compress_per_channel needs compress_axis")
     value_grad = value_and_grad(loss_fn)
     dtype = getattr(torch, grad_dtype) if grad_dtype else None
 
-    def grad_fn(params, batch):
-        loss, grads = value_grad(params, batch)
+    def prepare(grads, params):
         if grad_shardings is not None:
             grads = tree_map(_hold, grads, grad_shardings)
         # the update's layout is the parameter's; the optimizer runs on shards
@@ -263,7 +365,11 @@ def make_train_step(
         grads = local(grads)
         if dtype is not None:
             grads = tree_map(lambda g: g.to(dtype), grads)
-        return loss, grads
+        return grads
+
+    def grad_fn(params, batch):
+        loss, grads = value_grad(params, batch)
+        return loss, prepare(grads, params)
 
     def compute_grads(params, batch):
         if accum_steps == 1:
@@ -285,103 +391,321 @@ def make_train_step(
 
     def train_step(state: Dict, batch: Dict) -> Tuple[Dict, Dict]:
         tp = None if compress_axis else tp_mesh()
-        if tp is not None:
-            return _tp_step(state, batch, tp)
         with deterministic():
-            mesh = None if compress_axis else data_mesh()
-            if mesh is not None:
-                batch = local_rows(batch, mesh.data_rank, mesh.shape["data"])
+            if tp is not None:
+                batch = _batch_rows(batch, tp)
+            else:
+                mesh = None if compress_axis else data_mesh()
+                if mesh is not None:
+                    batch = local_rows(batch, mesh.data_rank, mesh.shape["data"])
             loss, grads = compute_grads(state["params"], batch)
+            # handed over in a box, so that no caller's frame keeps the
+            # gradients alive while the update releases them leaf by leaf
+            box = [grads]
+            del grads
+            return finish(state, loss, box, tp)
+
+    def apply_grads(state: Dict, loss, grads) -> Tuple[Dict, Dict]:
+        tp = None if compress_axis else tp_mesh()
+        with deterministic():
+            return finish(state, loss, [prepare(grads, state["params"])], tp)
+
+    def finish(state, loss, box, tp):
+        with torch.no_grad():
+            if tp is not None:
+                return _tp_finish(state, loss, box, tp)
+            grads = box.pop()
+            mesh = None if compress_axis else data_mesh()
             new_err = None
-            with torch.no_grad():
-                if compress_axis:
-                    from ..dist.compression import compressed_psum
-                    group = _axis_group(compress_axis)
-                    grads, new_err = compressed_psum(grads, state["grad_err"], group,
-                                                     per_channel=compress_per_channel)
-                    loss, = rank_order_mean([loss], group)
-                elif mesh is not None:
-                    paths = [p for p, _ in tree_leaves_with_path(grads)]
-                    loss, *means = rank_order_mean(
-                        [loss] + [g for _, g in tree_leaves_with_path(grads)], mesh.group())
-                    by_path = dict(zip(paths, means))
-                    grads = tree_map_with_path(lambda p, _: by_path[p], grads)
-                grads, gnorm = clip_by_global_norm(grads, clip_norm)
+            if compress_axis:
+                from ..dist.compression import compressed_psum
+                group = _axis_group(compress_axis)
+                grads, new_err = compressed_psum(grads, state["grad_err"], group,
+                                                 per_channel=compress_per_channel)
+                loss, = rank_order_mean([loss], group)
+            elif mesh is not None:
+                paths = [p for p, _ in tree_leaves_with_path(grads)]
+                means = rank_order_mean(([] if loss is None else [loss])
+                                        + [g for _, g in tree_leaves_with_path(grads)],
+                                        mesh.group())
+                if loss is not None:
+                    loss, means = means[0], means[1:]
+                by_path = dict(zip(paths, means))
+                grads = tree_map_with_path(lambda p, _: by_path[p], grads)
+            if donate:
+                scale, gnorm = clip_scale(grads, clip_norm)
                 lr = lr_fn(state["step"])
-                updates, new_opt = opt.update(grads, state["opt"], state["params"], lr)
-                new_params = apply_updates(state["params"], updates)
+                by_path = dict(tree_leaves_with_path(grads))
+                del grads
+                _update_by_leaf(opt, by_path, state["opt"], state["params"], lr, donate=True,
+                                scale=scale)
+                if new_err is not None:
+                    tree_map(lambda old, new: old.copy_(new), state["grad_err"], new_err)
+                state["step"].add_(1)
+                return state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
+            grads, gnorm = clip_by_global_norm(grads, clip_norm)
+            lr = lr_fn(state["step"])
+            updates, new_opt = opt.update(grads, state["opt"], state["params"], lr)
+            new_params = apply_updates(state["params"], updates)
         new_state = {"params": new_params, "opt": new_opt, "step": state["step"] + 1}
         if new_err is not None:
             new_state["grad_err"] = new_err
         return new_state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
 
-    def _tp_step(state: Dict, batch: Dict, mesh: ProcessMesh) -> Tuple[Dict, Dict]:
+    def _tp_finish(state: Dict, loss, box, mesh: ProcessMesh) -> Tuple[Dict, Dict]:
         from torch.distributed.tensor import DTensor, Shard
         params, opt_state = state["params"], state["opt"]
+        grads = box.pop()
         for path, x in tree_leaves_with_path(opt_state):
             if x.ndim and not isinstance(x, DTensor):
-                raise NotImplementedError(
-                    f"optimizer leaf {path} is not laid out like a parameter: under tensor "
-                    "parallelism the step updates SGD and AdamW state (elementwise moments), "
-                    "not Adafactor's factored rows and columns")
-        with deterministic():
-            loss, grads = compute_grads(params, _batch_rows(batch, mesh))
-            with torch.no_grad():
-                # which groups each leaf is split over; a leaf split over
-                # 'data' (FSDP experts) had its gradient averaged there in
-                # the backward, every other one is averaged here
-                shards = tree_map(lambda p: tuple(
-                    mesh.group(name) for name, pl in zip(p.device_mesh.mesh_dim_names,
-                                                         p.placements)
-                    if isinstance(pl, Shard)) if isinstance(p, DTensor) else (), params)
-                data_split = tree_map(lambda p: isinstance(p, DTensor) and isinstance(
-                    p.placements[0], Shard), params)
-                if mesh.shape["data"] > 1:
-                    # leaf by leaf (the same bits as one buffer: the mean is
-                    # elementwise), so the rows in flight are one leaf's
-                    group = mesh.group("data")
-                    loss, = rank_order_mean([loss], group)
-                    grads = tree_map(lambda g, split: g if split
-                                     else rank_order_mean([g], group)[0], grads, data_split)
-                grads, gnorm = clip_by_global_norm(grads, clip_norm, shards)
-                lr = lr_fn(state["step"])
-                by_path = dict(tree_leaves_with_path(grads))
-                del grads                    # each gradient is released once used
-                new_params, new_opt = _update_by_leaf(opt, by_path, local(opt_state),
-                                                      local(params), lr)
+                raise ValueError(f"optimizer leaf {path} is not placed on the mesh: build the "
+                                 "state with init_train_state from placed parameters")
+        # which groups each leaf is split over; a leaf split over 'data'
+        # (FSDP experts) had its gradient averaged there in the backward,
+        # every other one is averaged here over the data-parallel axes
+        shards = tree_map(lambda p: tuple(
+            mesh.group(name) for name, pl in zip(p.device_mesh.mesh_dim_names, p.placements)
+            if isinstance(pl, Shard)) if isinstance(p, DTensor) else (), params)
+        data_split = tree_map(lambda p: isinstance(p, DTensor) and any(
+            name == "data" and isinstance(pl, Shard)
+            for name, pl in zip(p.device_mesh.mesh_dim_names, p.placements)), params)
+        if mesh.dp_size > 1:
+            # leaf by leaf (the same bits as one buffer: the mean is
+            # elementwise), so the rows in flight are one leaf's
+            group = mesh.group("dp")
+            if loss is not None:
+                loss, = rank_order_mean([loss], group)
+            pods = mesh.group("pod") if "pod" in mesh.shape else None
+            grads = tree_map(lambda g, split: (g if pods is None else rank_order_mean(
+                [g], pods)[0]) if split else rank_order_mean([g], group)[0], grads, data_split)
+        if donate:                   # each gradient scaled as the update takes it
+            scale, gnorm = clip_scale(grads, clip_norm, shards)
+        else:
+            scale = None
+            grads, gnorm = clip_by_global_norm(grads, clip_norm, shards)
+        lr = lr_fn(state["step"])
+        by_path = dict(tree_leaves_with_path(grads))
+        del grads                    # each gradient is released once used
+        factored = opt.name == "adafactor"
+        opt_local = _adafactor_aligned(opt_state, params) if factored else local(opt_state)
+        means = tree_map(lambda p: _ShardMeans.of(p, mesh), params) if factored else None
+        new_params, new_opt = _update_by_leaf(opt, by_path, opt_local, local(params), lr,
+                                              donate=donate, means=means, scale=scale)
+        if factored:
+            new_opt = _adafactor_stored(new_opt, opt_state, params, donate)
+        if donate:
+            state["step"].add_(1)
+            return state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
         new_state = {"params": tree_map(_rewrap, new_params, params),
                      "opt": tree_map(_rewrap, new_opt, opt_state), "step": state["step"] + 1}
         return new_state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
 
+    train_step.apply_grads = apply_grads
     return train_step
 
 
-def _update_by_leaf(opt: Optimizer, g_by: Dict, opt_state: Dict, params: Any, lr
+def _subtree(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+# elements per piece of a leaf that a donated SGD / AdamW update takes at once
+_CHUNK = 1 << 26
+
+
+def _rows_of(n_rows: int, row_numel: int):
+    """Slices of a leaf's dim 0, each at most `_CHUNK` elements (one row
+    at least)."""
+    per = max(1, _CHUNK // max(row_numel, 1))
+    return [slice(i, min(i + per, n_rows)) for i in range(0, n_rows, per)]
+
+
+def _update_by_leaf(opt: Optimizer, g_by: Dict, opt_state: Dict, params: Any, lr,
+                    donate: bool = False, means: Any = None, scale=None
                     ) -> Tuple[Any, Dict]:
     """``opt.update`` and `apply_updates` one parameter leaf at a time ->
     (new params, new optimizer state): the same numbers as one call over
-    the trees (an SGD or AdamW update is elementwise within a leaf, given
-    the step's scalars), with one leaf's temporaries alive at a time.
+    the trees (an SGD, AdamW or Adafactor update is leafwise, given the
+    step's scalars), with one leaf's temporaries alive at a time.
     ``g_by`` maps each parameter's path to its gradient, and each is
-    popped (released) once used. The optimizer state's entries that mirror
-    the parameters (``m`` / ``v``, ``mu``) are cut per leaf; the others
-    (``t``) are passed whole."""
+    popped (released) once used; with ``scale`` (the clip's factor) each
+    is multiplied by it first, as `optim.clip_by_global_norm` would. The
+    optimizer state's entries that mirror the parameters (``m`` / ``v``,
+    ``mu``, Adafactor's ``s``: per parameter a tensor or a dict of them)
+    are cut per parameter; the others (``t``) are passed whole.
+
+    With ``donate`` each new leaf is written into the old one's buffer at
+    once, the counters last, and the input trees are returned; an SGD or
+    AdamW update, elementwise, then runs over slices of the leaf's dim 0
+    (`_rows_of`), so a stacked leaf's temporaries are a slice's. ``means``
+    (Adafactor): a tree like ``params`` of the leaf means its update takes
+    (`optim.LeafMeans`)."""
     paths = [p for p, _ in tree_leaves_with_path(params)]
     mirrors = [k for k, v in opt_state.items() if isinstance(v, (dict, tuple, list))]
-    by_key = {k: dict(tree_leaves_with_path(opt_state[k])) for k in mirrors}
     scalars = {k: v for k, v in opt_state.items() if k not in mirrors}
     p_by = dict(tree_leaves_with_path(params))
+    m_by = dict(tree_leaves_with_path(means)) if means is not None else {}
+    elementwise = opt.name in ("sgd", "adamw")
     new_p, new_s, rest = {}, {k: {} for k in mirrors}, scalars
     for path in paths:
-        leaf_state = dict(scalars, **{k: by_key[k][path] for k in mirrors})
-        upd, leaf_new = opt.update(g_by.pop(path), leaf_state, p_by[path], lr)
-        new_p[path] = apply_updates(p_by[path], upd)
-        for k in mirrors:
-            new_s[k][path] = leaf_new[k]
+        old = {k: _subtree(opt_state[k], path) for k in mirrors}
+        g, p = g_by.pop(path), p_by[path]
+        if scale is not None:
+            g = g * scale
+        kw = {"mean": m_by[path]} if path in m_by else {}
+        if donate and elementwise and p.ndim:
+            for rows in _rows_of(p.shape[0], p[0].numel()):
+                part = dict(scalars, **{k: old[k][rows] for k in mirrors})
+                upd, leaf_new = opt.update(g[rows], part, p[rows], lr)
+                p[rows].copy_(apply_updates(p[rows], upd))
+                del upd
+                for k in mirrors:
+                    old[k][rows].copy_(leaf_new[k])
+            rest = {k: v for k, v in leaf_new.items() if k not in mirrors}
+            del g
+            continue
+        upd, leaf_new = opt.update(g, dict(scalars, **old), p, lr, **kw)
+        del g
+        new = apply_updates(p, upd)
+        del upd
+        if donate:
+            p.copy_(new)
+            for k in mirrors:
+                tree_map(lambda o, n: o.copy_(n), old[k], leaf_new[k])
+        else:
+            new_p[path] = new
+            for k in mirrors:
+                new_s[k][path] = leaf_new[k]
         rest = {k: v for k, v in leaf_new.items() if k not in mirrors}
-    new_opt = dict(rest, **{k: tree_map_with_path(lambda p, _: new_s[k][p], opt_state[k])
+    if donate:
+        for k, v in rest.items():
+            opt_state[k].copy_(v)
+        return params, opt_state
+    new_opt = dict(rest, **{k: tree_map_with_path(lambda p, _: new_s[k][p], params)
                             for k in mirrors})
     return tree_map_with_path(lambda p, _: new_p[p], params), new_opt
+
+
+# ---------------------------------------------------------------------------
+# Adafactor under tensor parallelism
+# ---------------------------------------------------------------------------
+
+class _ShardMeans(LeafMeans):
+    """`optim.LeafMeans` over a whole leaf of which this rank holds a
+    shard: a partial sum on the shard, all-reduced over the groups that
+    split the reduced dims, divided by the whole extent. A replicated leaf
+    takes the plain means (`of` returns None)."""
+
+    def __init__(self, groups: Dict[int, list], extents: Tuple[int, ...]):
+        self.groups, self.extents = groups, extents
+
+    @staticmethod
+    def of(p, mesh):
+        from torch.distributed.tensor import DTensor, Shard
+        if not isinstance(p, DTensor):
+            return None
+        groups: Dict[int, list] = {}
+        for name, pl in zip(p.device_mesh.mesh_dim_names, p.placements):
+            if isinstance(pl, Shard):
+                groups.setdefault(pl.dim - p.ndim, []).append(mesh.group(name))
+        return _ShardMeans(groups, tuple(p.shape)) if groups else None
+
+    def _sum(self, x, dims, keepdim=False):
+        from ..dist.tensor_parallel import all_reduce
+        s = torch.sum(x, dim=dims, keepdim=keepdim) if dims else torch.sum(x)
+        n = 1
+        for d in (dims or range(-len(self.extents), 0)):
+            for group in self.groups.get(d, ()):
+                s = all_reduce(s, group)
+            n *= self.extents[d]
+        return s / n
+
+    def row(self, g2):
+        return self._sum(g2, (-1,))
+
+    def col(self, g2):
+        return self._sum(g2, (-2,))
+
+    def row_mean(self, vr):
+        # vr's last dim is the leaf's dim -2
+        from ..dist.tensor_parallel import all_reduce
+        s = torch.sum(vr, dim=-1, keepdim=True)
+        for group in self.groups.get(-2, ()):
+            s = all_reduce(s, group)
+        return s / self.extents[-2]
+
+    def all(self, u2):
+        return self._sum(u2, ())
+
+
+def _reduced_placements(placements, ndim: int, drop: int):
+    """A leaf's placements on the tensor left when its dim ``drop``
+    (negative) is reduced away: that dim's shards become replicas, later
+    dims shift down."""
+    from torch.distributed.tensor import Replicate, Shard
+    drop %= ndim
+    out = []
+    for pl in placements:
+        if isinstance(pl, Shard):
+            out.append(Replicate() if pl.dim == drop else
+                       Shard(pl.dim - 1) if pl.dim > drop else pl)
+        else:
+            out.append(pl)
+    return out
+
+
+def _moment_placements(name: str, p):
+    """The placements Adafactor's moment ``name`` takes in the update: its
+    parameter's shards on the dims it keeps (``vr`` drops dim -1, ``vc``
+    dim -2, ``v`` none)."""
+    if name == "v":
+        return list(p.placements)
+    return _reduced_placements(p.placements, p.ndim, -1 if name == "vr" else -2)
+
+
+def _adafactor_aligned(opt_state: Dict, params) -> Dict:
+    """Adafactor's state with each moment as the local tensor its update
+    needs: the stored ZeRO-1 layout gathered whole (exact) and cut as its
+    parameter's shard (`_moment_placements`); counters as they are."""
+    from torch.distributed.tensor import DTensor
+    from ..dist.sharding import _from_full, full_tensor
+
+    def leaf(p, s):
+        if not isinstance(p, DTensor):
+            return {k: (v.to_local() if isinstance(v, DTensor) else v) for k, v in s.items()}
+        return {k: _from_full(full_tensor(v), p.device_mesh,
+                              _moment_placements(k, p)).to_local() for k, v in s.items()}
+    return dict({k: v for k, v in opt_state.items() if k != "s"},
+                s=tree_map(leaf, params, opt_state["s"]))
+
+
+def _adafactor_stored(new_opt: Dict, opt_state: Dict, params, donate: bool) -> Dict:
+    """The updated moments (local, as `_adafactor_aligned` cut them) back in
+    their stored ZeRO-1 layout: gathered whole and cut as the stored
+    DTensor is; with ``donate`` written into its buffer."""
+    from torch.distributed.tensor import DTensor
+    from ..dist.sharding import _from_full, full_tensor
+
+    def leaf(p, new, old):
+        out = {}
+        for k, v in new.items():
+            store = old[k]
+            if isinstance(p, DTensor):
+                whole = full_tensor(DTensor.from_local(
+                    v, p.device_mesh, _moment_placements(k, p), run_check=False,
+                    shape=store.shape, stride=store.stride()))
+                v = _from_full(whole, store.device_mesh, store.placements).to_local()
+            if donate:
+                (store.to_local() if isinstance(store, DTensor) else store).copy_(v)
+                out[k] = store
+            else:
+                out[k] = _rewrap(v, store)
+        return out
+    s = tree_map(leaf, params, new_opt["s"], opt_state["s"])
+    if donate:
+        return opt_state
+    return dict({k: v for k, v in new_opt.items() if k != "s"}, s=s)
 
 
 def stack_error_state(state: Dict, n_shards: int) -> Dict:

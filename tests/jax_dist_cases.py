@@ -273,11 +273,12 @@ def _tp_mesh():
                          axis_types=(jax.sharding.AxisType.Auto,) * 2)
 
 
-def case_tp_step(cfg, params, batch, lr, ckpt_dir=""):
+def case_tp_step(cfg, params, batch, lr, ckpt_dir="", opt="adamw"):
     """The reference's GSPMD step on a (2, 2) ``('data', 'model')`` mesh,
     as `tests/test_dist.py`'s sharded case runs it, on carried weights (laid
     out by `param_specs`) and a global batch over 'data': the loss and
-    gradients, and one AdamW step; the new state written to ``ckpt_dir``."""
+    gradients, and one step of ``opt`` (weight decay 0); the new state
+    written to ``ckpt_dir``."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
@@ -285,12 +286,12 @@ def case_tp_step(cfg, params, batch, lr, ckpt_dir=""):
     from repro.dist.context import compute_mesh
     from repro.models import transformer as tf
     from repro.train import checkpoint as ckpt
-    from repro.train.optim import adamw
+    from repro.train.optim import make_optimizer
     from repro.train.schedule import constant
     from repro.train.train_step import init_train_state, make_train_step
     cfg = _arch(cfg)
     mesh = _tp_mesh()
-    opt = adamw(weight_decay=0.0)
+    opt = make_optimizer(opt, weight_decay=0.0)
     loss_fn = lambda p, b: tf.train_loss(p, b, cfg)  # noqa: E731
     with mesh, compute_mesh(mesh):
         p = jax.tree.map(jnp.asarray, params)
@@ -326,6 +327,72 @@ def case_tp_batch(batch):
         by_dev = {s.device: np.asarray(s.data) for s in arr.addressable_shards}
         for pos, dev in enumerate(mesh.devices.flat):
             out.setdefault(pos, {})[key] = by_dev[dev]
+    return out
+
+
+def _spec_entries(spec) -> tuple:
+    return tuple(e[0] if isinstance(e, tuple) and len(e) == 1 else e for e in spec)
+
+
+def _flat_shapes(tree) -> list:
+    import jax
+    return [(jax.tree_util.keystr(p), tuple(x.shape))
+            for p, x in jax.tree_util.tree_flatten_with_path(tree)[0]]
+
+
+def _flat_specs(tree) -> dict:
+    import jax
+    from jax.sharding import PartitionSpec as P
+    return {jax.tree_util.keystr(p): _spec_entries(s) for p, s in
+            jax.tree_util.tree_flatten_with_path(tree, is_leaf=lambda x: isinstance(x, P))[0]}
+
+
+def case_dryrun_specs(archs):
+    """What the reference's dry run builds without compiling anything, per
+    arch: `count_params`, the parameter shape tree, `batch_shapes` per
+    shape; on both production meshes `param_specs`, `zero1_opt_specs` of
+    the SGD, AdamW and Adafactor states, `cache_specs` and `batch_spec`;
+    and on the pod mesh each applicable cell's cost pieces (name,
+    multiplier, argument shapes), from ``jax.eval_shape``."""
+    import jax
+    from repro.configs import SHAPES, get_arch, shape_applicable
+    from repro.dist import sharding as shd
+    from repro.launch import costing, specs
+    from repro.launch.mesh import make_production_mesh
+    from repro.models import transformer as tf
+    from repro.train.optim import make_optimizer
+    meshes = {"pod": make_production_mesh(), "multipod": make_production_mesh(multi_pod=True)}
+    out = {}
+    for arch in archs:
+        cfg = get_arch(arch)
+        p_shapes = specs.param_shapes(cfg)
+        rec = {"count": specs.count_params(cfg), "params": _flat_shapes(p_shapes),
+               "batch": {n: _flat_shapes(specs.batch_shapes(cfg, sh)) for n, sh in SHAPES.items()},
+               "specs": {}, "pieces": {}}
+        opt_shapes = {name: jax.eval_shape(make_optimizer(name).init, p_shapes)
+                      for name in ("sgd", "adamw", "adafactor")}
+        caches = {n: jax.eval_shape(lambda sh=sh: tf.init_cache(cfg, sh.global_batch, sh.seq_len))
+                  for n, sh in SHAPES.items() if sh.kind == "decode"
+                  and shape_applicable(cfg, sh)[0]}
+        for mname, mesh in meshes.items():
+            p_part = shd.param_specs(p_shapes, mesh, cfg.fsdp_experts)
+            rec["specs"][mname] = {
+                "params": _flat_specs(p_part),
+                "opt": {n: _flat_specs(shd.zero1_opt_specs(o, p_part, mesh))
+                        for n, o in opt_shapes.items()},
+                "cache": {n: _flat_specs(shd.cache_specs(c, mesh)) for n, c in caches.items()},
+                "batch": {n: _flat_specs(shd.batch_spec(specs.batch_shapes(cfg, sh), mesh))
+                          for n, sh in SHAPES.items()}}
+        for n, sh in SHAPES.items():
+            if not shape_applicable(cfg, sh)[0]:
+                continue
+            if sh.kind == "train":
+                pieces = costing.train_pieces(cfg, sh, meshes["pod"])
+            else:
+                pieces = costing.serve_pieces(cfg, sh, meshes["pod"], decode=sh.kind == "decode")
+            rec["pieces"][n] = [(pc.name, pc.mult, [_flat_shapes(a) for a in pc.arg_specs])
+                                for pc in pieces]
+        out[arch] = rec
     return out
 
 

@@ -1028,3 +1028,33 @@ def test_tensor_parallel_step_on_two_ranks_of_one_card_matches_cpu(cuda):
         den = sum(float(np.sum(b[k].astype(np.float64) ** 2)) for k in b)
         assert (num / den) ** 0.5 <= 1e-5
     assert card[0]["loss"] == card[1]["loss"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt_name", ["sgd", "adamw", "adafactor"])
+def test_donated_train_step_on_the_card_keeps_the_functional_bits(cuda, opt_name):
+    """``make_train_step(donate=True)`` on the card (a reduced MoE LM, bf16,
+    remat): the input state object returned, every leaf in its own buffer,
+    the functional step's bits and loss; the functional step leaves its
+    input unchanged."""
+    from torch_dist_workers import donation_check
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.train import optim, schedule
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    from repro_torch.train.tree import tree_map
+    cfg = get_arch("granite-moe-3b-a800m").with_(
+        n_layers=3, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16, d_ff=64, moe_d_ff=32,
+        n_experts=8, top_k=2, n_experts_padded=0, vocab=128, q_chunk=16, kv_chunk=16)
+    params = tf.init_params(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+    batch = token_batch(0, 0, 4, 32, cfg.vocab, "cuda")
+    opt = optim.make_optimizer(opt_name)
+
+    def step_fn(donate):
+        return make_train_step(lambda p, b: tf.train_loss(p, b, cfg), opt,
+                               schedule.constant(1e-3), donate=donate)
+    state = init_train_state(params, opt)
+    for _ in range(2):
+        assert donation_check(step_fn, state, batch, lambda s: tree_map(
+            lambda x: x.clone(), s)) == {"same_object": True, "same_buffers": True,
+                                         "bits": True, "loss": True, "unchanged": True}

@@ -38,7 +38,15 @@ both as numpy; so are the batches. Bars, and why:
   restores onto the port's (2, 2) mesh bit for bit;
 - (e) a `DataPipeline` on the mesh hands each rank the rows JAX's
   ``NamedSharding(mesh, P('data', None))`` gives the device at its mesh
-  position.
+  position;
+- (f) Adafactor under tensor parallelism: one (2, 2) step of the reduced
+  llama4-fsdp config with Adafactor against JAX's GSPMD step and one
+  process at (a)'s bars, its factored moments laid out by
+  ``zero1_opt_specs``; the collective bytes the fake (2, 2) dry run
+  (`launch.costing`) predicts for a step equal the bytes the gloo step
+  issues, counted by the same dispatch mode; and a donated step
+  (``donate=True``) gives the functional step's bits in the input's
+  buffers for SGD, AdamW and Adafactor.
 """
 import dataclasses
 
@@ -80,6 +88,8 @@ STEP_CFGS = {
     "llama4-fsdp": _fields(_reduce(jax_get_arch("llama4-maverick-400b-a17b")).with_(
         fsdp_experts=True)),
 }
+STEP_CFGS["llama4-fsdp-adafactor"] = STEP_CFGS["llama4-fsdp"]
+STEP_OPTS = {"llama4-fsdp-adafactor": "adafactor"}
 
 
 def _batch(cfg, rows, seq, seed):
@@ -117,7 +127,8 @@ def _torch(tree):
 def tp_run(tmp_path_factory):
     root = tmp_path_factory.mktemp("tp")
     steps = {name: {"cfg": f, "params": _params(f),
-                    "batch": _batch(ArchConfig(**f), 8, 16, seed=i), "lr": LR}
+                    "batch": _batch(ArchConfig(**f), 8, 16, seed=i), "lr": LR,
+                    "opt": STEP_OPTS.get(name, "adamw")}
              for i, (name, f) in enumerate(STEP_CFGS.items())}
     losses = {}
     for arch in ARCHS:
@@ -133,13 +144,16 @@ def tp_run(tmp_path_factory):
     procs = [run_cases([("tp_step", dict(steps["dense"], ckpt_dir=jax_ckpt, key="dense")),
                         ("tp_step", dict(steps["llama4-fsdp"], key="llama4-fsdp")),
                         ("tp_batch", dict(batch=pipeline))], 4),
+             run_cases([("tp_step", dict(steps["llama4-fsdp-adafactor"],
+                                         key="llama4-fsdp-adafactor"))], 4),
              run_cases([("tp_step", dict(steps[name], key=name)) for name in ("granite", "xlstm")],
                        4)]
     ref = {}
     try:
         ranks = run_ranks("tp", 4, {"steps": steps, "losses": losses, "elastic": "dense",
                                     "root": str(root / "port_ckpt"), "jax_ckpt": jax_ckpt,
-                                    "pipeline": pipeline}, timeout=600)
+                                    "pipeline": pipeline, "donate": steps["dense"]},
+                          timeout=600)
     finally:
         for proc in procs:
             ref.update(collect(proc))
@@ -162,7 +176,8 @@ def _tree_rel_l2(a: dict, b: dict) -> float:
 def _one_process(case):
     """One process of the port on the global batch, as the data-parallel
     step computes it: each data half's loss and gradients, averaged in rank
-    order, clipped, one AdamW step -> (loss, gradient norm, gradients, state)."""
+    order, clipped, one step of the case's optimizer -> (loss, gradient norm,
+    gradients, state)."""
     from repro_torch.train.optim import apply_updates, clip_by_global_norm
     from repro_torch.train.train_step import deterministic, init_train_state
     cfg = ArchConfig(**case["cfg"])
@@ -173,7 +188,7 @@ def _one_process(case):
     mean = lambda a, b: ((a.float() + b.float()) / 2.0).to(a.dtype)  # noqa: E731
     loss = float(mean(halves[0][0], halves[1][0]))
     grads = tree_map(mean, halves[0][1], halves[1][1])
-    opt = optim.adamw(weight_decay=0.0)
+    opt = optim.make_optimizer(case.get("opt", "adamw"), weight_decay=0.0)
     state = init_train_state(params, opt)
     with torch.no_grad(), deterministic():
         clipped, norm = clip_by_global_norm(grads, 1.0)
@@ -240,11 +255,15 @@ def test_tp_layouts_follow_param_spec(tp_run, name):
     parameter's path), 1/2 of the extent on a model-sharded dim."""
     fsdp = tp_run["steps"][name]["cfg"].get("fsdp_experts", False)
     params = {keystr(p): x for p, x in tree_leaves_with_path(tp_run["steps"][name]["params"])}
+    factored = tp_run["steps"][name]["opt"] == "adafactor"
     for out in tp_run["ranks"]:
-        layouts = out["steps"][name]["layouts"]
+        layouts = dict(out["steps"][name]["layouts"])
         for kind in ("params", "grads", "new_params"):
             assert set(layouts[kind]) == set(params), kind
-        assert {k for k in layouts["opt"]} == {f"['{m}']{k}" for m in "mv" for k in params}
+        if factored:                     # (f): checked by its own test
+            layouts.pop("opt")
+        else:
+            assert {k for k in layouts["opt"]} == {f"['{m}']{k}" for m in "mv" for k in params}
         for kind, table in layouts.items():
             for key, (placements, local, whole) in table.items():
                 pkey = key[5:] if kind == "opt" else key
@@ -357,3 +376,64 @@ def test_data_pipeline_refuses_a_mesh_without_a_model_axis():
         DataPipeline(lambda step: {}, make_data_mesh(2, "cpu"))
     with pytest.raises(ValueError, match="make_process_mesh"):
         DataPipeline(lambda step: {}, make_data_mesh(2, "cpu"), device="cpu")
+
+
+def test_tp_adafactor_moments_follow_zero1_specs(tp_run):
+    """(f) Adafactor's moments (``vr`` / ``vc``, ``v``) after the step: each
+    laid out by `zero1_opt_specs` on the (2, 2) mesh (its own shape, the
+    first divisible dim over 'data'), the local shard that spec's slice."""
+    from repro_torch.train.optim import adafactor
+
+    class Mesh:
+        axis_names, shape = ("data", "model"), {"data": 2, "model": 2}
+    params = tf.params_from_numpy(tp_run["steps"]["llama4-fsdp-adafactor"]["params"], "cpu")
+    want = {keystr(("s",) + p): s for p, s in tree_leaves_with_path(
+        shd.zero1_opt_specs(adafactor().init(params)["s"], {}, Mesh()),
+        is_leaf=lambda x: isinstance(x, shd.PartitionSpec))}
+    shapes = {keystr(("s",) + p): tuple(x.shape)
+              for p, x in tree_leaves_with_path(adafactor().init(params)["s"])}
+    for out in tp_run["ranks"]:
+        table = out["steps"]["llama4-fsdp-adafactor"]["layouts"]["opt"]
+        assert set(table) == set(want)
+        for key, (placements, local, whole) in table.items():
+            spec = want[key]
+            dims = [d for d, e in enumerate(spec) if e == "data"]
+            assert whole == shapes[key], key
+            assert placements == ((f"S({dims[0]})" if dims else "R"), "R"), (key, placements)
+            assert local == tuple(n // 2 if dims and d == dims[0] else n
+                                  for d, n in enumerate(whole)), key
+    assert any(pl[0].startswith("S") for pl, _, _ in table.values())
+
+
+@pytest.mark.parametrize("name", ["dense", "llama4-fsdp-adafactor"])
+def test_tp_collective_bytes_match_the_dry_run(tp_run, name):
+    """(f) the wire bytes the fake (2, 2) dry run counts for a step (its
+    train objects, on fake tensors) equal what the gloo step issued."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.dist.context import compute_mesh
+    from repro_torch.launch import costing, specs
+    from repro_torch.launch.mesh import make_fake_mesh
+    case = tp_run["steps"][name]
+    cfg = ArchConfig(**case["cfg"])
+    assert cfg.optimizer == case["opt"]
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=16, global_batch=8)
+    with make_fake_mesh(2, 2, device="cpu") as mesh, FakeTensorMode(), compute_mesh(mesh):
+        step, state, batch, _, _ = specs.make_train_objects(cfg, shape, mesh, "cpu")
+        with costing.counting(costing.CostMode()) as mode:
+            step(state, batch)
+    for out in tp_run["ranks"]:
+        issued = out["steps"][name]["costs"]
+        assert issued["coll_bytes"] == mode.costs()["coll_bytes"] > 0
+        assert issued["coll_detail"] == mode.costs()["coll_detail"]
+        assert issued["flops"] == mode.costs()["flops"]
+
+
+@pytest.mark.parametrize("opt", ["sgd", "adamw", "adafactor"])
+def test_tp_donated_step_keeps_the_functional_bits(tp_run, opt):
+    """(f) on (2, 2): ``donate=True`` returns the input state object, keeps
+    every leaf's buffer and gives the functional step's bits and loss; the
+    functional step leaves its input unchanged."""
+    for out in tp_run["ranks"]:
+        assert out["donate"][opt] == {"same_object": True, "same_buffers": True, "bits": True,
+                                      "loss": True, "unchanged": True}

@@ -803,3 +803,38 @@ def test_lm_crash_resume_bit_identical(tmp_path):
     final2 = loop2.run(restored, 5, start_step=start)
     for (pa, a), (pb, b) in zip(tree_leaves_with_path(final1), tree_leaves_with_path(final2)):
         assert pa == pb and a.dtype == b.dtype and torch.equal(a, b), pa
+
+
+# ---------------------------------------------------------------------------
+# donated train step (make_train_step(donate=True))
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+@pytest.mark.parametrize("opt_name", ["sgd", "adamw", "adafactor"])
+def test_donated_step_keeps_the_functional_bits(opt_name, remat, monkeypatch):
+    """``donate=True`` writes the new state into the input's buffers and
+    returns the input object, with the functional step's bits (parameters,
+    optimizer state, step counter, loss); ``donate=False`` leaves its input
+    unchanged. One process, a reduced LM in bf16, two steps; the donated
+    SGD / AdamW update cut into slices of a few rows (remat on) or whole
+    (off)."""
+    from repro_torch.train import train_step
+    from torch_dist_workers import donation_check
+    if remat == "full":
+        monkeypatch.setattr(train_step, "_CHUNK", 100)
+    cfg = torch_get_arch("qwen1.5-4b").with_(
+        n_layers=3, d_model=32, n_heads=4, n_kv_heads=2, head_dim=8, d_ff=32, vocab=64,
+        q_chunk=8, kv_chunk=8, dtype="bfloat16", remat=remat)
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    batch = token_batch(0, 0, 4, 16, cfg.vocab, "cpu")
+    opt = optim.make_optimizer(opt_name)
+
+    def step_fn(donate):
+        return make_train_step(lambda p, b: lm.train_loss(p, b, cfg), opt,
+                               schedule.constant(1e-3), donate=donate)
+    state = init_train_state(params, opt)
+    for _ in range(2):
+        assert donation_check(step_fn, state, batch, lambda s: tree_map(
+            lambda x: x.clone(), s)) == {"same_object": True, "same_buffers": True,
+                                         "bits": True, "loss": True, "unchanged": True}
+    assert int(state["step"]) == 2

@@ -259,11 +259,12 @@ def case_tp(rank, world, inp, device):
     from repro_torch.train.loop import replicas_agree
     from repro_torch.train.train_step import init_train_state, make_train_step, value_and_grad
     from repro_torch.train.tree import tree_leaves_with_path
+    from repro_torch.launch.costing import CostMode, counting
     mesh = make_process_mesh(2, 2, device)
-    opt = optim.adamw(weight_decay=0.0)
     out = {"coords": (mesh.data_rank, mesh.model_rank), "steps": {}, "losses": {}}
     for name, case in inp["steps"].items():
         cfg = ArchConfig(**case["cfg"])
+        opt = optim.make_optimizer(case.get("opt", "adamw"), weight_decay=0.0)
         params = tf.params_from_numpy(case["params"], device)
         batch = _tensors(case["batch"], device)
         placed = shd.place(params, mesh, cfg.fsdp_experts)
@@ -273,7 +274,8 @@ def case_tp(rank, world, inp, device):
                                grad_shardings=shd.placements(params, mesh, cfg.fsdp_experts))
         with compute_mesh(mesh):
             loss, grads, grad_layouts = _tp_grads(mesh, placed, batch, cfg)
-            new, metrics = step(state, batch)
+            with counting(CostMode()) as costs:
+                new, metrics = step(state, batch)
             again, _ = step(state, batch)
             agree = replicas_agree(new, mesh, exact=True)
             whole = _numpy(shd.gather(new))
@@ -283,6 +285,7 @@ def case_tp(rank, world, inp, device):
             "layouts": {"params": _layouts(placed), "grads": grad_layouts,
                         "opt": _layouts(new["opt"]), "new_params": _layouts(new["params"])},
             "local": _numpy(shd.local(new["params"])), "agree": agree,
+            "costs": costs.costs(),
             "rerun_equal": all(torch_equal(a, b) for (_, a), (_, b) in zip(
                 tree_leaves_with_path(shd.local(new)), tree_leaves_with_path(shd.local(again))))}
         if name == inp["elastic"]:
@@ -301,6 +304,7 @@ def case_tp(rank, world, inp, device):
                     tree_leaves_with_path(shd.local(new)))),
                 "onto22_layouts": _layouts(back), "onto41": _numpy(onto41),
                 "one_process": _numpy(ckpt.restore(root, 1, template)) if rank == 0 else None}
+    out["donate"] = _donated_steps(mesh, inp["donate"], device)
     for name, case in inp["losses"].items():
         cfg = ArchConfig(**case["cfg"])
         params = tf.params_from_numpy(case["params"], device)
@@ -318,7 +322,7 @@ def case_tp(rank, world, inp, device):
     case = inp["steps"][inp["elastic"]]
     cfg = ArchConfig(**case["cfg"])
     template = init_train_state(shd.place(tf.params_from_numpy(case["params"], device), mesh),
-                                opt)
+                                optim.adamw(weight_decay=0.0))
     with compute_mesh(mesh):
         from_jax = ckpt.restore(jax_dir, 1, template, shardings=shd.placements(template, mesh))
         out["from_jax"] = {"state": _numpy(shd.gather(from_jax)), "layouts": _layouts(from_jax)}
@@ -330,6 +334,56 @@ def case_tp(rank, world, inp, device):
     it.close()
     out["pipeline"] = {k: (v.to_local().cpu().numpy(), tuple(str(p) for p in v.placements))
                        for k, v in placed_batch.items()}
+    return out
+
+
+def donation_check(step_fn, state, batch, clone):
+    """One functional and one donated step of ``step_fn(donate)`` from
+    ``state`` -> {the donated state is the input object, every leaf keeps
+    its buffer, every leaf's bits equal the functional step's, the loss
+    too, the functional step left its input unchanged}. ``clone`` copies a
+    state tree."""
+    import torch
+    from repro_torch.dist.sharding import local
+    from repro_torch.train.tree import tree_leaves_with_path
+    keep = clone(state)
+    functional, m_f = step_fn(False)(state, batch)
+    unchanged = all(torch_equal(a, b) for (_, a), (_, b) in zip(
+        tree_leaves_with_path(local(state)), tree_leaves_with_path(local(keep))))
+    ptrs = [x.data_ptr() for _, x in tree_leaves_with_path(local(state))]
+    donated, m_d = step_fn(True)(state, batch)
+    return {"same_object": donated is state,
+            "same_buffers": ptrs == [x.data_ptr() for _, x in
+                                     tree_leaves_with_path(local(donated))],
+            "bits": all(torch_equal(a, b) for (_, a), (_, b) in zip(
+                tree_leaves_with_path(local(functional)), tree_leaves_with_path(local(donated)))),
+            "loss": torch_equal(m_f["loss"], m_d["loss"]), "unchanged": unchanged}
+
+
+def _donated_steps(mesh, case, device):
+    """`donation_check` on the mesh for SGD, AdamW and Adafactor."""
+    from repro_torch.configs.base import ArchConfig
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist.context import compute_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import optim, schedule
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    from repro_torch.train.tree import tree_map
+    cfg = ArchConfig(**case["cfg"])
+    batch = _tensors(case["batch"], device)
+    out = {}
+    for name in ("sgd", "adamw", "adafactor"):
+        opt = optim.make_optimizer(name)
+        placed = shd.place(tf.params_from_numpy(case["params"], device), mesh, cfg.fsdp_experts)
+        state = init_train_state(placed, opt)
+
+        def step_fn(donate, opt=opt):
+            return make_train_step(lambda p, b: tf.train_loss(p, b, cfg), opt,
+                                   schedule.constant(case["lr"]), donate=donate)
+        with compute_mesh(mesh):
+            out[name] = donation_check(step_fn, state, batch, lambda s: tree_map(
+                lambda x: shd._from_full(shd.full_tensor(x), x.device_mesh, x.placements)
+                if hasattr(x, "device_mesh") else x.clone(), s))
     return out
 
 
