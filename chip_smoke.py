@@ -192,7 +192,14 @@ Run from the root of a checkout. Phases, one line or block each:
              equal to one process's where the router's gap exceeds 1e-4;
              (c) 13a's parameters saved on (2, 2), restored onto (4, 1) by
              the same ranks and onto this one process, every leaf
-             bit-identical.
+             bit-identical; (d) heads the model axis does not divide, on a
+             (1, 3) mesh of 3 ranks (`--tp-uneven-rank`): qwen1.5-4b at
+             full width, 2 layers (20 heads as 7 / 7 / 6) and xlstm-125m at
+             full width, 4 of 12 layers (4 heads as 2 / 1 / 1), fp32,
+             batch 2 x 512: one step of each against one process on the
+             card (1e-6 loss, 1e-5 per gradient leaf, 1e-5 parameter tree,
+             relative), each rank's head range and peak allocated beside
+             one process's peak.
 14. dryrun — the dry run (`launch.dryrun`, `launch.costing`): (a)
              `python -m repro_torch.launch.dryrun` as six subprocesses side
              by side, started after phase 2 with ``--device cpu``, niced
@@ -203,8 +210,10 @@ Run from the root of a checkout. Phases, one line or block each:
              prefill_32k; recurrentgemma-2b decode_32k; qwen1.5-4b
              train_4k on the 2x16x16 mesh), each ending ``ok``, the three
              records' params_total, params_active and model_flops equal
-             to ``results/dryrun/``'s; each cell's per-chip peak, totals,
-             roofline terms and trace seconds printed; (b) granite-moe-3b
+             to ``results/dryrun/``'s and their FLOP per chip at most
+             `DRYRUN_FLOP_CEILING`'s; each cell's per-chip peak, totals,
+             roofline terms and trace seconds printed (beside the
+             reference's record where there is one); (b) granite-moe-3b
              at full width and full depth (32 layers), bf16, remat, AdamW,
              11a's 8 x 512 batches, the donated step on the card: 2 steps
              twice from one seeded state, bit-identical; the dry run of
@@ -3617,6 +3626,155 @@ def tp_rank(case, out_prefix):
     dist.destroy_process_group()
 
 
+# 13d: heads the model axis does not divide, on (1, 3): qwen1.5-4b (20 heads
+# as 7 / 7 / 6) at 13a's depth and xlstm-125m (4 heads as 2 / 1 / 1) at 11c's
+# 4 of its 12 layers, full width, fp32, each rank computing its range of the
+# heads; one step of each against one process on the card at
+# tests/test_torch_tp.py (a)'s bars
+UNEVEN_CASES = (("qwen1.5-4b", TP_LAYERS), ("xlstm-125m", RESUME_LAYERS))
+UNEVEN_MESH, UNEVEN_BATCH = (1, 3), 2
+UNEVEN_BARS = {"loss": 1e-6, "grad": 1e-5, "params": 1e-5}
+
+
+def tp_uneven_rank(out_path):
+    """Phase 13d, one torchrun worker (every rank on cuda:0, gloo), for each
+    of UNEVEN_CASES: rank 0 first takes one process's gradients and one
+    AdamW step alone on the card (the other ranks wait, holding nothing);
+    then every rank draws the same seeded weights, places them by
+    `param_spec` on the (1, 3) mesh and takes the gradients and one step.
+    Rank 0 holds them against one process's; each rank writes its head
+    range and its peak allocated to ``{out_path}.{rank}.json``."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist.context import compute_mesh
+    from repro_torch.dist.tensor_parallel import tp_axis
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optim import make_optimizer
+    from repro_torch.train.schedule import constant
+    from repro_torch.train.train_step import init_train_state, make_train_step, value_and_grad
+    from repro_torch.train.tree import keystr, tree_leaves_with_path
+    mesh = make_process_mesh(*UNEVEN_MESH, device="cuda")
+    rank = mesh.rank
+    out = {"rank": rank, "models": {}}
+
+    def rel(a, b):
+        return float((a - b).norm() / max(float(b.norm()), 1e-30))
+
+    for arch, layers in UNEVEN_CASES:
+        t0 = time.perf_counter()
+        cfg = get_arch(arch).with_(n_layers=layers, dtype="float32")
+        opt = make_optimizer(cfg.optimizer)
+        loss_fn = lambda p, b: tf.train_loss(p, b, cfg)  # noqa: E731
+        step = make_train_step(loss_fn, opt, constant(TP_LR))
+        batch = make_batch_fn(cfg, 0, UNEVEN_BATCH, TP_SEQ, "cuda")(0)
+
+        def draw():
+            return tf.init_params(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+        rec, ref = {}, None
+        if rank == 0:                 # one process, alone on the card
+            torch.cuda.reset_peak_memory_stats()
+            params = draw()
+            loss1, grads1 = value_and_grad(loss_fn)(params, batch)
+            grads1 = {keystr(p): g.cpu() for p, g in tree_leaves_with_path(grads1)}
+            new, _ = step(init_train_state(params, opt), batch)
+            ref = {"loss": float(loss1), "grads": grads1,
+                   "params": {keystr(p): x.cpu() for p, x in tree_leaves_with_path(
+                       new["params"])}}
+            rec["one_process_peak_bytes"] = torch.cuda.max_memory_allocated()
+            del params, new, grads1
+            torch.cuda.empty_cache()
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        state = init_train_state(shd.place(draw(), mesh), opt)
+        torch.cuda.empty_cache()
+        with compute_mesh(mesh):
+            rec["heads"] = list(tp_axis().span(cfg.n_heads))
+            loss, grads = value_and_grad(loss_fn)(state["params"], batch)
+            worst = (0.0, None)
+            for path, g in tree_leaves_with_path(grads):
+                full = shd.full_tensor(g)
+                if rank == 0:
+                    worst = max(worst, (rel(full, ref["grads"][keystr(path)].cuda()),
+                                        keystr(path)))
+                del full
+            del grads
+            new, metrics = step(state, batch)
+            num = den = 0.0
+            for path, x in tree_leaves_with_path(new["params"]):
+                full = shd.full_tensor(x)
+                if rank == 0:
+                    b = ref["params"][keystr(path)].cuda()
+                    num += float((full - b).norm()) ** 2
+                    den += float(b.norm()) ** 2
+                    del b
+                del full
+        torch.cuda.synchronize()
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+        rec["loss"] = float(loss)
+        if rank == 0:
+            rec.update(loss_rel=abs(float(loss) - ref["loss"]) / abs(ref["loss"]),
+                       step_loss_rel=abs(float(metrics["loss"]) - ref["loss"]) / abs(ref["loss"]),
+                       grad_worst=list(worst), params_rel=(num / den) ** 0.5)
+        rec["seconds"] = time.perf_counter() - t0
+        out["models"][arch] = rec
+        del state, new
+        torch.cuda.empty_cache()
+    with open(f"{out_path}.{rank}.json", "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def check_uneven_heads(torch, errors, smi, root):
+    """Phase 13d (see UNEVEN_CASES) under torchrun, this script re-entering
+    itself as each rank with `--tp-uneven-rank`."""
+    t0 = time.perf_counter()
+    n = UNEVEN_MESH[0] * UNEVEN_MESH[1]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(n),
+           "--master-addr", "127.0.0.1", "--master-port", str(_free_port()), SCRIPT,
+           "--tp-uneven-rank", os.path.join(root, "uneven")]
+    proc = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=os.path.join(
+        ROOT, "src")), capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        lines = [ln for ln in proc.stderr.splitlines() if ln.startswith("[rank")]
+        errors.append(f"13d: exit {proc.returncode}: "
+                      + "\n".join(lines[-60:] or proc.stderr.splitlines()[-60:]))
+        return {"seconds": time.perf_counter() - t0}
+    ranks = []
+    for r in range(n):
+        with open(os.path.join(root, f"uneven.{r}.json")) as f:
+            ranks.append(json.load(f))
+    res = {"ranks": ranks}
+    for arch, layers in UNEVEN_CASES:
+        recs = [r["models"][arch] for r in ranks]
+        r0 = recs[0]
+        bars = UNEVEN_BARS
+        if r0["loss_rel"] > bars["loss"] or r0["step_loss_rel"] > bars["loss"] \
+                or r0["grad_worst"][0] > bars["grad"] or r0["params_rel"] > bars["params"]:
+            errors.append(f"13d {arch}: against one process loss rel {r0['loss_rel']:.3e} "
+                          f"(step {r0['step_loss_rel']:.3e}), worst gradient "
+                          f"{r0['grad_worst']}, parameters rel L2 {r0['params_rel']:.3e} "
+                          f"(bars {bars})")
+        if len({r["loss"] for r in recs}) != 1:
+            errors.append(f"13d {arch}: the ranks' losses differ: {[r['loss'] for r in recs]}")
+        print(f"tp 13d: {arch} full width, {layers} layers, fp32, batch {UNEVEN_BATCH} x "
+              f"{TP_SEQ}, mesh {UNEVEN_MESH} ({n} ranks on cuda:0, gloo): heads per rank "
+              f"{[tuple(r['heads']) for r in recs]}; peak allocated per rank "
+              f"{[round(r['peak_bytes'] / 2**30, 2) for r in recs]} GiB (one process "
+              f"{r0['one_process_peak_bytes'] / 2**30:.2f} GiB alone); against one process: "
+              f"loss rel {r0['loss_rel']:.3e} (the step's {r0['step_loss_rel']:.3e}), worst "
+              f"gradient leaf {r0['grad_worst'][0]:.3e} at {r0['grad_worst'][1]}, parameters "
+              f"after one step rel L2 {r0['params_rel']:.3e} (bars {bars}); "
+              f"{r0['seconds']:.1f} s [{smi}]")
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
 # ---------------------------------------------------------------------------
 # phase 14: the dry run and its prediction against the card
 # ---------------------------------------------------------------------------
@@ -3628,6 +3786,12 @@ DRYRUN_CELLS = (("qwen1.5-4b", "train_4k", "pod"), ("granite-moe-3b-a800m", "tra
                 ("phi-3-vision-4.2b", "prefill_32k", "pod"),
                 ("recurrentgemma-2b", "decode_32k", "pod"),
                 ("qwen1.5-4b", "train_4k", "multipod"))
+# 14a: FLOP per chip at most (the cells whose heads the 16-way model axis
+# does not divide; before each rank computed only its own heads they
+# counted 1.0629e15, 3.4830e14 and 2.9879e15)
+DRYRUN_FLOP_CEILING = {"qwen1.5-4b_train_4k_pod": 2.0e14,
+                       "granite-moe-3b-a800m_train_4k_pod": 7.0e13,
+                       "llama4-maverick-400b-a17b_train_4k_pod": 8.0e14}
 # 14b: the predicted peak against max_memory_allocated over a step
 PEAK_TOL = 0.15
 
@@ -3811,7 +3975,7 @@ def check_dry_run(torch, errors, smi, started=None):
                           f"{log[-600:]}")
             continue
         ref_path = os.path.join(ROOT, "results", "dryrun", f"{tag}.json")
-        match = None
+        match, ref = None, None
         if os.path.exists(ref_path):
             with open(ref_path) as f:
                 ref = json.load(f)
@@ -3819,6 +3983,9 @@ def check_dry_run(torch, errors, smi, started=None):
                                                    "model_flops"))
             if not match:
                 errors.append(f"14a: {tag} counts differ from the reference's record")
+        if rec["totals"]["flops"] > DRYRUN_FLOP_CEILING.get(tag, math.inf):
+            errors.append(f"14a: {tag} counts {rec['totals']['flops']:.4e} FLOP per chip, "
+                          f"over {DRYRUN_FLOP_CEILING[tag]:.1e}")
         out["cells"][tag] = {"trace_s": rec["trace_s"], "pieces_s": rec["pieces_s"],
                              "memory": rec["memory"], "totals": rec["totals"],
                              "roofline": rec["roofline"], "step_raw": rec["step_raw"],
@@ -3837,7 +4004,10 @@ def check_dry_run(torch, errors, smi, started=None):
               f"{r['t_mem_s']:.4f} s, coll {r['t_coll_s']:.4f} s ({r['dominant']}); params "
               f"{rec['params_total']} / {rec['params_active']} active, model FLOPs "
               f"{rec['model_flops']}"
-              + ("" if match is None else f"; reference's counts equal: {match}"))
+              + ("" if match is None else f"; reference's counts equal: {match}; the "
+                 f"reference's record {ref['totals']['flops']:.4e} FLOP, "
+                 f"{ref['totals']['coll_bytes']:.4e} wire bytes, peak "
+                 f"{ref['memory']['peak_estimate_gib']} GiB per chip"))
 
     # 14b
     rc, log = runs["predict"]
@@ -3893,7 +4063,7 @@ def check_tensor_parallel(torch, errors, smi):
     under torchrun, this script re-entering itself as each rank with
     `--tp-rank`; then 13c: the checkpoint 13a wrote on (2, 2), which its
     ranks restored onto (4, 1), restored onto this one process, every leaf
-    bit-identical."""
+    bit-identical; then 13d (`check_uneven_heads`)."""
     import shutil
     t0 = time.perf_counter()
     root = os.path.join(ROOT, "build", "chip_smoke_tp")
@@ -3987,6 +4157,8 @@ def check_tensor_parallel(torch, errors, smi):
               f"writing the gathered leaves), restored onto (4, 1) (every rank's shards "
               f"bit-identical {equal41}, {ranks[0]['restore_s']:.1f} s) and onto one process "
               f"(every leaf's digest equal {one_equal}, {res['restore']['seconds']:.1f} s)")
+    torch.cuda.empty_cache()
+    res["uneven"] = check_uneven_heads(torch, errors, smi, root)
     shutil.rmtree(root, ignore_errors=True)
     res["seconds"] = time.perf_counter() - t0
     return res
@@ -4393,6 +4565,8 @@ if __name__ == "__main__":
         train_rank(sys.argv[2], sys.argv[3:])
     elif sys.argv[1:2] == ["--tp-rank"]:
         tp_rank(sys.argv[2], sys.argv[3])
+    elif sys.argv[1:2] == ["--tp-uneven-rank"]:
+        tp_uneven_rank(sys.argv[2])
     elif sys.argv[1:2] == ["--predict-14b"]:
         predict_14b(sys.argv[2])
     else:

@@ -19,8 +19,8 @@ primitive     forward                      backward
 ``reduce``    all-reduce (partial sums of  identity
               a row-parallel product)
 ``gather``    all-gather along a dim       this rank's slice; with
-                                           ``partial=True`` the all-reduced
-                                           slice (a rank-specific use)
+              (equal slices, or the        ``partial=True`` the all-reduced
+              ranks' `span` s)             slice (a rank-specific use)
 ``split``     this rank's slice            all-gather
 ============  ===========================  ==================================
 
@@ -35,10 +35,26 @@ is sharded along over ``'model'`` (and over ``'data'``, for the experts of
 ``fsdp_experts``). `TPAxis.param` turns one into the layout a block needs
 (its storage layout when that is the one, else gathered and re-split),
 `TPAxis.full` into the whole tensor.
+
+Heads and channels split over the model ranks in contiguous ranges,
+whether or not the axis divides them, as GSPMD pads them: rank r of m
+holds `TPAxis.span` ``[lo, hi)`` of n units, ``ceil(n / m)`` on the
+first ``n % m`` ranks and ``floor(n / m)`` on the others (none where n <
+m; rank 0 always holds the most). Where m divides n that is the equal
+shard. The storage layouts stay `dist.sharding.param_spec` 's; a block
+takes its range of a leaf with `TPAxis.part`, which is the local shard
+itself where the storage shard is that range, else cut from the whole
+leaf (`TPAxis.whole`: gathered with ``partial=True``, or a replicated
+leaf through ``copy``, so that the backward sums the ranks' partial
+gradients and returns this rank's storage shard). Every rank runs the
+same collectives in the same order, a rank with an empty range
+included: it computes its zero heads with the same operations, so each
+fetched weight reaches its (zero-width) output and autograd runs the
+same backward collectives on every rank.
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -76,13 +92,22 @@ def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
-    """The ranks' ``x`` concatenated along ``dim`` in rank order (exact)."""
+def all_gather(x: torch.Tensor, dim: int, group,
+               sizes: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` in rank order (exact).
+    ``sizes``: each rank's extent along ``dim`` where they differ (each
+    ``x`` travels padded to the largest)."""
     n, r = dist.get_world_size(group), dist.get_rank(group)
-    rows = torch.zeros((n,) + tuple(x.shape), dtype=_transport(x[:0]).dtype, device=x.device)
-    rows[r] = x
+    shape = list(x.shape)
+    if sizes is not None:
+        shape[dim] = max(sizes)
+    rows = torch.zeros([n] + shape, dtype=_transport(x[:0]).dtype, device=x.device)
+    rows[r].narrow(dim, 0, x.shape[dim]).copy_(x)
     dist.all_reduce(rows, op=dist.ReduceOp.SUM, group=group)
-    return torch.cat(rows.to(x.dtype).unbind(0), dim=dim)
+    parts = rows.to(x.dtype).unbind(0)
+    if sizes is not None:
+        parts = [t.narrow(dim, 0, k) for t, k in zip(parts, sizes)]
+    return torch.cat(parts, dim=dim)
 
 
 def chunk(x: torch.Tensor, dim: int, n: int, r: int) -> torch.Tensor:
@@ -114,16 +139,17 @@ class _Reduce(torch.autograd.Function):
 
 class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, dim, group, partial):
-        ctx.dim, ctx.group, ctx.partial = dim, group, partial
-        return all_gather(x, dim, group)
+    def forward(ctx, x, dim, group, partial, sizes):
+        ctx.dim, ctx.group, ctx.partial, ctx.sizes = dim, group, partial, sizes
+        return all_gather(x, dim, group, sizes)
 
     @staticmethod
     def backward(ctx, g):
         if ctx.partial:
             g = all_reduce(g, ctx.group)
-        n, r = dist.get_world_size(ctx.group), dist.get_rank(ctx.group)
-        return chunk(g, ctx.dim, n, r).contiguous(), None, None, None
+        r = dist.get_rank(ctx.group)
+        g = g.narrow(ctx.dim, sum(ctx.sizes[:r]), ctx.sizes[r])
+        return g.contiguous(), None, None, None, None
 
 
 class _Split(torch.autograd.Function):
@@ -171,14 +197,27 @@ class TPAxis:
         """The whole extent of ``leaf``'s (negative) dim ``dim``."""
         return leaf.t.shape[dim] * (self.size if leaf.dim == dim else 1)
 
+    def span(self, n: int, rank: Optional[int] = None) -> Tuple[int, int]:
+        """``rank`` 's (default: this rank's) contiguous range ``[lo, hi)``
+        of ``n`` heads or channels (module docstring)."""
+        r = self.rank if rank is None else rank
+        q, extra = divmod(n, self.size)
+        lo = r * q + min(r, extra)
+        return lo, lo + q + (r < extra)
+
     def copy(self, x: torch.Tensor) -> torch.Tensor:
         return _Copy.apply(x, self.group)
 
     def reduce(self, x: torch.Tensor) -> torch.Tensor:
         return _Reduce.apply(x, self.group)
 
-    def gather(self, x: torch.Tensor, dim: int, partial: bool = False) -> torch.Tensor:
-        return _Gather.apply(x, dim, self.group, partial)
+    def gather(self, x: torch.Tensor, dim: int, partial: bool = False,
+               n: Optional[int] = None) -> torch.Tensor:
+        """All-gather along ``dim`` of each rank's `span` of ``n``, the
+        whole extent (default: equal slices)."""
+        n = x.shape[dim] * self.size if n is None else n
+        sizes = [b - a for a, b in (self.span(n, r) for r in range(self.size))]
+        return _Gather.apply(x, dim, self.group, partial, sizes)
 
     def split(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         return _Split.apply(x, dim, self.group)
@@ -203,6 +242,27 @@ class TPAxis:
         if have is not None:
             t = self.gather(t, have)
         return t if want is None else self.split(t, want)
+
+    def whole(self, leaf) -> torch.Tensor:
+        """``leaf`` whole for a use that differs by rank: gathered with
+        ``partial=True`` (sharded) or through `copy` (replicated), so that
+        the backward sums the ranks' partial gradients and returns this
+        rank's storage shard."""
+        leaf = self._data_full(leaf if isinstance(leaf, TPLeaf) else TPLeaf(leaf))
+        if leaf.dim is None:
+            return self.copy(leaf.t)
+        return self.gather(leaf.t, leaf.dim, partial=True)
+
+    def part(self, leaf, dim: int, lo: int, hi: int) -> torch.Tensor:
+        """Indices ``[lo, hi)`` of ``leaf`` 's (negative) dim ``dim`` for
+        this rank's own use: the local shard where the storage shard is
+        that range (its gradient this rank's alone), else cut from
+        `whole`."""
+        leaf = self._data_full(leaf if isinstance(leaf, TPLeaf) else TPLeaf(leaf))
+        own = leaf.t.shape[dim]
+        if leaf.dim == dim and lo == self.rank * own and hi - lo == own:
+            return leaf.t
+        return self.whole(leaf).narrow(dim, lo, hi - lo)
 
     def full(self, tree: Any) -> Any:
         """Every `TPLeaf` of ``tree`` (a leaf or a dict / tuple of them) whole."""

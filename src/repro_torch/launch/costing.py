@@ -701,9 +701,9 @@ def _slstm_correction(cfg: ArchConfig, shape: ShapeConfig, mesh, train: bool,
     p_shapes = xl.slstm_init(_generator(device), d, cfg.n_heads, _dtype(cfg), device)
     p_part = shd.param_specs(p_shapes, mesh, cfg.fsdp_experts)
     heads = cfg.n_heads
-    width = d
-    if tp is not None and tp.divides(cfg.n_heads):     # a rank runs its heads' steps
-        heads, width = cfg.n_heads // tp.size, d // tp.size
+    if tp is not None:                                  # a rank runs its heads' steps
+        lo, hi = tp.span(cfg.n_heads)
+        heads = hi - lo
     carry = tuple(torch.zeros((b, d), dtype=torch.float32, device=device) for _ in range(4))
     wx = torch.zeros((b, 4 * d), dtype=torch.float32, device=device)
     remat = train and cfg.remat == "full"
@@ -719,14 +719,9 @@ def _slstm_correction(cfg: ArchConfig, shape: ShapeConfig, mesh, train: bool,
         carry, wx = tuple(rows(c) for c in carry), rows(wx)
         if tp is None:
             return p, carry, wx
-        full = tp.full(_unwrap(p, tp))
-        if not tp.divides(cfg.n_heads):
-            return full, carry, wx
-        ld, lh = width, heads
-        cols = torch.cat([torch.arange(g * d + tp.rank * ld, g * d + (tp.rank + 1) * ld,
-                                       device=wx.device) for g in range(4)])
-        return ({"r": full["r"][:, tp.rank * lh:(tp.rank + 1) * lh], "b": full["b"][..., cols]},
-                tuple(c[:, tp.rank * ld:(tp.rank + 1) * ld] for c in carry), wx[:, cols])
+        own, cols, (c0, c1) = xl.slstm_heads_tp(tp, _unwrap(p, tp), d, cfg.n_heads,
+                                                wx.device)
+        return own, tuple(c[:, c0:c1] for c in carry), wx[:, cols]
 
     def step_fn(p, carry, wx):
         with _paused(_current_mode):

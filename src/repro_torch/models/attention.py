@@ -15,7 +15,7 @@ old state keep a separate tensor (`serve.runners.lm._LMSession._fresh`).
 
 `attention_block_tp` is the training/prefill block on one model rank of
 a tensor-parallel mesh (`dist.tensor_parallel`): heads split over the
-ranks.
+ranks in contiguous, possibly uneven, ranges.
 """
 from __future__ import annotations
 
@@ -82,7 +82,7 @@ def chunked_causal_attention(
     """
     b, s, h, hd = q.shape
     kv_heads = k.shape[2]
-    g = h // kv_heads
+    g = h // kv_heads if kv_heads else 1                  # a model rank with no heads
     q_chunk = _largest_divisor_leq(s, q_chunk)
     kv_chunk = _largest_divisor_leq(s, kv_chunk)
     nq, nk = s // q_chunk, s // kv_chunk
@@ -137,25 +137,17 @@ def attention_block(
     return out.reshape(b, s, n_heads * head_dim) @ p["wo"]
 
 
-def _kv_heads_tp(tp, p, x, name, n_heads, n_kv_heads, head_dim):
-    """This rank's KV heads for its query heads ``[B, S, kv, hd]``, and
-    how many it holds. KV heads that split over the ranks come from the
-    column shard; fewer KV heads than ranks (MQA) are projected whole on
-    every rank and the one this rank's query heads read is taken (its
-    gradient summed over the ranks that read it)."""
-    b, s, _ = x.shape
-    bias = p.get("b" + name[1])
-    if tp.divides(n_kv_heads):
-        y = tp.copy(x) @ tp.param(p[name], -1)
-        if bias is not None:
-            y = y + tp.param(bias, -1)
-        return y.reshape(b, s, n_kv_heads // tp.size, head_dim)
-    y = x @ tp.param(p[name], None)
-    if bias is not None:
-        y = y + tp.param(bias, None)
-    lh, g = n_heads // tp.size, n_heads // n_kv_heads
-    first = tp.rank * lh // g
-    return tp.copy(y).reshape(b, s, n_kv_heads, head_dim)[:, :, first:first + 1]
+def _kv_per_head(t: torch.Tensor, g: int, lo: int, hi: int, klo: int) -> torch.Tensor:
+    """K or V of the KV heads ``[klo, ...)`` ``[B, S, nk, hd]`` for the query
+    heads ``[lo, hi)`` (head h reads KV head h // g): as they are where the
+    local query heads read them in equal groups (one KV head, or whole
+    groups of g), else expanded to one per query head."""
+    nk = t.shape[2]
+    if nk <= 1 or (lo == klo * g and hi - lo == nk * g):
+        return t
+    b, s, _, hd = t.shape
+    t = t[:, :, :, None].expand(b, s, nk, g, hd).reshape(b, s, nk * g, hd)
+    return t[:, :, lo - klo * g:hi - klo * g]
 
 
 def attention_block_tp(
@@ -165,28 +157,34 @@ def attention_block_tp(
     q_chunk: int = 512, kv_chunk: int = 1024, f32_streams: bool = False,
 ) -> torch.Tensor:
     """`attention_block` on one model rank: ``p`` holds `TPLeaf` s, ``x``
-    is replicated. ``wq`` (and ``wk`` / ``wv`` where the KV heads divide)
-    column-parallel, so each rank computes its ``n_heads / tp`` heads
-    exactly as one process does; ``wo`` row-parallel, its partial sums
-    all-reduced. Where the query heads do not divide, or one rank's heads
-    would read more than one shared KV head, every rank runs the whole
-    block on the gathered weights."""
+    is replicated. This rank computes its range of the query heads
+    (`TPAxis.span`: uneven where the ranks do not divide the heads, none
+    where there are fewer heads than ranks) exactly as one process does,
+    from those heads' columns of ``wq`` and the KV heads they read
+    (`TPAxis.part`: the column shard where the heads divide), the K / V
+    expanded to one per query head where the range cuts a group
+    (`_kv_per_head`); ``wo`` row-parallel on the same range, its partial
+    sums all-reduced."""
     kw = dict(window=window, q_chunk=q_chunk, kv_chunk=kv_chunk, f32_streams=f32_streams)
-    lh, g = n_heads // tp.size, n_heads // n_kv_heads
-    if not tp.divides(n_heads) or not (tp.divides(n_kv_heads) or g % lh == 0):
-        return attention_block(tp.full(p), x, n_heads=n_heads, n_kv_heads=n_kv_heads,
-                               head_dim=head_dim, rope_theta=rope_theta, **kw)
     b, s, _ = x.shape
+    lo, hi = tp.span(n_heads)
+    g = n_heads // n_kv_heads
+    klo, khi = (lo // g, (hi - 1) // g + 1) if hi > lo else (0, 0)
+    xc = tp.copy(x)
+
+    def project(name, a, z):
+        y = xc @ tp.part(p["w" + name], -1, a * head_dim, z * head_dim)
+        if "b" + name in p:
+            y = y + tp.part(p["b" + name], -1, a * head_dim, z * head_dim)
+        return y.reshape(b, s, z - a, head_dim)
+
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    q = tp.copy(x) @ tp.param(p["wq"], -1)
-    if "bq" in p:
-        q = q + tp.param(p["bq"], -1)
-    q = apply_rope(q.reshape(b, s, lh, head_dim), positions, rope_theta)
-    k = apply_rope(_kv_heads_tp(tp, p, x, "wk", n_heads, n_kv_heads, head_dim), positions,
-                   rope_theta)
-    v = _kv_heads_tp(tp, p, x, "wv", n_heads, n_kv_heads, head_dim)
+    q = apply_rope(project("q", lo, hi), positions, rope_theta)
+    k = _kv_per_head(apply_rope(project("k", klo, khi), positions, rope_theta), g, lo, hi, klo)
+    v = _kv_per_head(project("v", klo, khi), g, lo, hi, klo)
     out = chunked_causal_attention(q, k, v, **kw)
-    return tp.reduce(out.reshape(b, s, lh * head_dim) @ tp.param(p["wo"], -2))
+    wo = tp.part(p["wo"], -2, lo * head_dim, hi * head_dim)
+    return tp.reduce(out.reshape(b, s, (hi - lo) * head_dim) @ wo)
 
 
 # ---------------------------------------------------------------------------

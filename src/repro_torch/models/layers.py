@@ -120,14 +120,13 @@ def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, act: str) -> torch.Te
 
 def mlp_apply_tp(tp, p: Dict, x: torch.Tensor, act: str) -> torch.Tensor:
     """`mlp_apply` on one model rank: ``p`` holds `TPLeaf` s and ``x`` is
-    replicated. Column-parallel ``w_in`` / ``w_gate`` (d_ff sharded),
-    row-parallel ``w_out``, the partial sums all-reduced; the output is
-    replicated. Where d_ff does not divide over the ranks every rank runs
-    the whole MLP on the gathered weights."""
-    if not tp.divides(tp.extent(p["w_out"], -2)):           # d_ff
-        return mlp_apply(tp.full(p), x, act)
+    replicated. Column-parallel ``w_in`` / ``w_gate`` and row-parallel
+    ``w_out`` on this rank's range of d_ff (`TPAxis.span`, uneven where
+    the ranks do not divide it), the partial sums all-reduced; the output
+    is replicated."""
+    lo, hi = tp.span(tp.extent(p["w_out"], -2))              # d_ff
     xc = tp.copy(x)
-    local = {k: tp.param(v, -2 if k == "w_out" else -1) for k, v in p.items()}
+    local = {k: tp.part(v, -2 if k == "w_out" else -1, lo, hi) for k, v in p.items()}
     h = xc @ local["w_in"]
     if act in ("swiglu", "geglu"):
         g = xc @ local["w_gate"]

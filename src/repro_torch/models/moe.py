@@ -37,8 +37,9 @@ device: in JAX only the MoE is under ``shard_map``.
 On one model rank of a tensor-parallel mesh (`dist.tensor_parallel`,
 ``p`` holding `TPLeaf` s) the router's column shards give logits that are
 gathered before the stable top-k, so routing and capacity are the same on
-every model rank; the experts' ``w_in`` / ``w_gate`` shard d_ff and
-``w_out`` is row-parallel, and the combined partial sums are all-reduced.
+every model rank; the experts' ``w_in`` / ``w_gate`` split d_ff (in
+uneven ranges where the ranks do not divide it) and ``w_out`` is
+row-parallel, and the combined partial sums are all-reduced.
 Each data rank routes its own rows, as the reference's ``shard_map`` over
 the data axes does: the train step hands each rank its rows. With
 ``fsdp_experts`` the expert stacks are also split over ``'data'`` and
@@ -127,16 +128,16 @@ def _moe_core(p: Dict, x: torch.Tensor, *, top_k: int, act: str, n_experts: int,
               n_valid: int, capacity_factor: float, tp=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One block of rows; ``tp`` (a `TPAxis`, ``p`` of `TPLeaf` s): on one
-    model rank, with d_ff split where it divides (module docstring)."""
+    model rank, with d_ff split over the ranks (module docstring)."""
     if tp is not None:
-        experts, split = _experts_tp(tp, p["experts"])
+        experts = _experts_tp(tp, p["experts"])
         if tp.divides(n_experts):
             router = lambda xt: tp.gather(tp.copy(xt) @ tp.param(p["w_router"], -1), -1)  # noqa: E731
         else:
             router = lambda xt: xt @ tp.param(p["w_router"], None)  # noqa: E731
         # rank-specific uses of replicated values (their gradients summed
-        # over the ranks) and the partial sums' reduction, where d_ff splits
-        part = (tp.copy, tp.reduce) if split else (lambda t: t, lambda t: t)
+        # over the ranks) and the partial sums' reduction
+        part = (tp.copy, tp.reduce)
     else:
         experts = p["experts"]
         router = lambda xt: xt @ p["w_router"]  # noqa: E731
@@ -210,10 +211,10 @@ def _moe_core(p: Dict, x: torch.Tensor, *, top_k: int, act: str, n_experts: int,
     return y.reshape(b, s, d), aux
 
 
-def _experts_tp(tp, experts: Dict) -> Tuple[Dict, bool]:
-    """The expert stacks on one model rank -> (tensors, whether d_ff is
-    split): ``w_in`` / ``w_gate`` column-parallel and ``w_out``
-    row-parallel where the expert d_ff divides, else whole on every rank."""
-    if not tp.divides(tp.extent(experts["w_out"], -2)):     # the expert d_ff
-        return {k: tp.param(v, None) for k, v in experts.items()}, False
-    return {k: tp.param(v, -2 if k == "w_out" else -1) for k, v in experts.items()}, True
+def _experts_tp(tp, experts: Dict) -> Dict:
+    """The expert stacks on one model rank: ``w_in`` / ``w_gate``
+    column-parallel and ``w_out`` row-parallel on this rank's range of
+    the expert d_ff (`TPAxis.span`, uneven where the ranks do not divide
+    it)."""
+    lo, hi = tp.span(tp.extent(experts["w_out"], -2))       # the expert d_ff
+    return {k: tp.part(v, -2 if k == "w_out" else -1, lo, hi) for k, v in experts.items()}

@@ -94,18 +94,17 @@ def rglru_block(p: Dict, x: torch.Tensor) -> torch.Tensor:
 
 def rglru_block_tp(tp, p: Dict, x: torch.Tensor) -> torch.Tensor:
     """`rglru_block` on one model rank (``p`` of `TPLeaf` s, ``x``
-    replicated): the d_rnn channels split over the ranks (``w_x``,
-    ``w_y``, ``w_conv``, ``lam`` and the gates' columns), the conv and the
-    scan per channel on this rank's, the gate projections reading every
-    channel (gathered), ``w_out`` row-parallel and its partial sums
-    all-reduced. Where d_rnn does not divide, the whole block on every
-    rank."""
-    if not tp.divides(tp.extent(p["w_out"], -2)):           # d_rnn
-        return rglru_block(tp.full(p), x)
-    local = {k: tp.param(v, -2 if k == "w_out" else -1) for k, v in p.items()}
+    replicated): the d_rnn channels split over the ranks (`TPAxis.span`,
+    uneven where the ranks do not divide them: ``w_x``, ``w_y``,
+    ``w_conv``, ``lam`` and the gates' columns), the conv and the scan per
+    channel on this rank's, the gate projections reading every channel
+    (gathered), ``w_out`` row-parallel and its partial sums all-reduced."""
+    d_rnn = tp.extent(p["w_out"], -2)
+    lo, hi = tp.span(d_rnn)
+    local = {k: tp.part(v, -2 if k == "w_out" else -1, lo, hi) for k, v in p.items()}
     xc = tp.copy(x)
     u = _causal_conv1d(xc @ local["w_x"], local["w_conv"])
-    h = _scan(*_gates(local, u, tp.gather(u, -1, partial=True))).to(u.dtype)
+    h = _scan(*_gates(local, u, tp.gather(u, -1, partial=True, n=d_rnn))).to(u.dtype)
     gate = _gelu(xc @ local["w_y"])
     return tp.reduce((h * gate) @ local["w_out"])
 

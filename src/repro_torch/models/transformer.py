@@ -60,7 +60,7 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ArchConfig
 from ..device import resolve_device
 from ..dist.sharding import shard_cotangents
-from ..dist.tensor_parallel import TPAxis, tp_axis, unwrap
+from ..dist.tensor_parallel import TPAxis, TPLeaf, tp_axis, unwrap
 from .attention import (attention_block, attention_block_tp, attention_decode, attn_init,
                         init_kv_cache)
 from .layers import (dense_init, embed_init, mlp_apply, mlp_apply_tp, mlp_init, rmsnorm,
@@ -382,6 +382,18 @@ def _blocks_tp(tp: TPAxis, cfg: ArchConfig, x: torch.Tensor, aux: torch.Tensor, 
     return x, aux
 
 
+def _period_axis_whole(tp: TPAxis, tree: Any) -> Any:
+    """The stacked period leaves with every period on every rank: a leaf
+    sharded along its period axis (a stacked 1-D leaf whose width the axis
+    does not divide, where it divides the periods) is gathered; per-period
+    tuples (`train.train_step.value_and_grad` 's) pass."""
+    if isinstance(tree, dict):
+        return {k: _period_axis_whole(tp, v) for k, v in tree.items()}
+    if isinstance(tree, TPLeaf) and tree.dim == -tree.t.ndim:
+        return TPLeaf(tp.gather(tree.t, tree.dim))
+    return tree
+
+
 def _forward_tp(tp: TPAxis, params: Dict, batch: Dict, cfg: ArchConfig
                 ) -> Tuple[torch.Tensor, torch.Tensor, bool]:
     """`forward` on one model rank -> (logits, aux, vocab-sharded).
@@ -392,6 +404,8 @@ def _forward_tp(tp: TPAxis, params: Dict, batch: Dict, cfg: ArchConfig
     ``attn_moe`` block (``cfg.sp_blocks``). Gathering a split stream and
     splitting a whole one move no number."""
     params = unwrap(shard_cotangents(params))
+    if "periods" in params:
+        params = dict(params, periods=_period_axis_whole(tp, params["periods"]))
     x = _embed_tp(tp, params, batch, cfg)
     seq = x.shape[1] % tp.size == 0
 

@@ -22,7 +22,8 @@ Both are leaky-integrator relatives of the paper's LIF neuron: mLSTM's
 forget gate is a learned, input-dependent beta. Decode functions return
 the new state and do not write the one they are given. `mlstm_block_tp`
 and `slstm_block_tp` split the heads over the ranks of a tensor-parallel
-mesh (`dist.tensor_parallel`).
+mesh (`dist.tensor_parallel`), in uneven ranges where the ranks do not
+divide them.
 """
 from __future__ import annotations
 
@@ -97,27 +98,27 @@ def mlstm_block_tp(tp, p: Dict, x: torch.Tensor, n_heads: int, chunk: int = 256
                    ) -> torch.Tensor:
     """`mlstm_block` on one model rank (``p`` of `TPLeaf` s, ``x``
     replicated): ``w_up`` column-parallel and gathered (q, k, v and the
-    gates read every channel), ``wq`` / ``wk`` / ``wv`` / ``w_if`` /
-    ``w_gate`` column-parallel so that this rank holds ``n_heads / tp``
-    heads, whose recurrences run here as in one process, ``w_down``
-    row-parallel with its partial sums all-reduced. Where the heads do
-    not divide, the whole block on every rank."""
-    if not tp.divides(n_heads):
-        return mlstm_block(tp.full(p), x, n_heads, chunk)
+    gates read every channel); this rank's range of the heads
+    (`TPAxis.span`, uneven where the ranks do not divide them) takes its
+    columns of ``wq`` / ``wk`` / ``wv`` / ``w_if`` / ``w_gate`` and of
+    ``b_f`` (`TPAxis.part`), and its recurrences run here as in one
+    process; ``w_down`` row-parallel on the same range, its partial sums
+    all-reduced."""
     b, s, _ = x.shape
-    lh = n_heads // tp.size
-    local = {k: tp.param(v, -2 if k == "w_down" else -1) for k, v in p.items()}
+    lo, hi = tp.span(n_heads)
+    d_in = tp.extent(p["wq"], -1)
+    hd = d_in // n_heads
+    cols = lambda name, dim=-1: tp.part(p[name], dim, lo * hd, hi * hd)  # noqa: E731
     xc = tp.copy(x)
-    u = tp.gather(xc @ local["w_up"], -1, partial=True)
-    hd = u.shape[-1] // n_heads
-    q = (u @ local["wq"]).reshape(b, s, lh, hd) / math.sqrt(hd)
-    k = (u @ local["wk"]).reshape(b, s, lh, hd) / math.sqrt(hd)
-    v = (u @ local["wv"]).reshape(b, s, lh, hd)
-    gates = (u @ local["w_if"]).float().reshape(b, s, lh, 2)
-    lf = F.logsigmoid(gates[..., 1] + local["b_f"])
+    u = tp.gather(xc @ tp.part(p["w_up"], -1, *tp.span(d_in)), -1, partial=True, n=d_in)
+    q = (u @ cols("wq")).reshape(b, s, hi - lo, hd) / math.sqrt(hd)
+    k = (u @ cols("wk")).reshape(b, s, hi - lo, hd) / math.sqrt(hd)
+    v = (u @ cols("wv")).reshape(b, s, hi - lo, hd)
+    gates = (u @ tp.part(p["w_if"], -1, 2 * lo, 2 * hi)).float().reshape(b, s, hi - lo, 2)
+    lf = F.logsigmoid(gates[..., 1] + tp.part(p["b_f"], -1, lo, hi))
     h = _mlstm_chunkwise(q, k, v, gates[..., 0], lf, chunk)
-    gate_out = F.silu(xc @ local["w_gate"])
-    return tp.reduce((h.to(x.dtype) * gate_out) @ local["w_down"])
+    gate_out = F.silu(xc @ cols("w_gate"))
+    return tp.reduce((h.to(x.dtype) * gate_out) @ cols("w_down", -2))
 
 
 def _mlstm_chunkwise(q, k, v, li, lf, chunk: int) -> torch.Tensor:
@@ -225,7 +226,7 @@ def _slstm_step(p: Dict, n_heads: int, carry, wx_t):
     """carry: (c, n, m, h) each [B, d] (fp32); wx_t: [B, 4d] input projection."""
     c, n, m, h = carry
     b, d = c.shape
-    hh = h.reshape(b, n_heads, d // n_heads)
+    hh = h.reshape(b, n_heads, p["r"].shape[-1])
     rec = torch.einsum("bhk,ghkl->bghl", hh, p["r"].float()).reshape(b, 4 * d)
     pre = wx_t.float() + rec + p["b"]
     z = torch.tanh(pre[:, 0:d])
@@ -274,30 +275,35 @@ def slstm_block(p: Dict, x: torch.Tensor, n_heads: int) -> torch.Tensor:
     return _slstm_scan(p, n_heads, carry, wx, s).to(x.dtype) @ p["w_out"]
 
 
+def slstm_heads_tp(tp, p: Dict, d: int, n_heads: int, device):
+    """This rank's heads of an sLSTM layer (`TPAxis.span`) -> (``r`` and
+    ``b`` of those heads, the columns of the input projection that feed
+    them (their z / i / f / o channels), their channel range). The stored
+    layouts do not split by head (``w_in`` 's column shards cut across its
+    z / i / f / o blocks, ``r`` is sharded inside a head), so the leaves are
+    taken whole (`TPAxis.whole`, their gradients summed over the ranks)."""
+    lo, hi = tp.span(n_heads)
+    hd = d // n_heads
+    cols = torch.cat([torch.arange(g * d + lo * hd, g * d + hi * hd, device=device)
+                      for g in range(4)])
+    return ({"r": tp.part(p["r"], -3, lo, hi), "b": tp.whole(p["b"])[..., cols]}, cols,
+            (lo * hd, hi * hd))
+
+
 def slstm_block_tp(tp, p: Dict, x: torch.Tensor, n_heads: int) -> torch.Tensor:
     """`slstm_block` on one model rank (``p`` of `TPLeaf` s, ``x``
-    replicated): the recurrence is per head, so each rank runs its
-    ``n_heads / tp`` heads' steps with no collective inside the time loop.
-    The stored layouts do not split by head (``w_in``'s column shards cut
-    across its z / i / f / o blocks, ``r`` is sharded inside a head), so
-    ``w_in``, ``r`` and ``b`` are gathered and this rank's heads' columns
-    taken (their gradients summed over the ranks); ``w_out`` is
-    row-parallel and its partial sums all-reduced. Where the heads do not
-    divide, the whole block on every rank."""
-    if not tp.divides(n_heads):
-        return slstm_block(tp.full(p), x, n_heads)
+    replicated): the recurrence is per head, so each rank runs its range
+    of the heads' steps (`slstm_heads_tp`; uneven where the ranks do not
+    divide them, none where there are fewer heads than ranks) with no
+    collective inside the time loop; ``w_out`` is row-parallel on the same
+    channels and its partial sums all-reduced."""
     b, s, d = x.shape
-    lh = n_heads // tp.size
-    ld = d // tp.size
-    cols = torch.cat([torch.arange(g * d + tp.rank * ld, g * d + (tp.rank + 1) * ld,
-                                   device=x.device) for g in range(4)])
-    mine = {"r": tp.copy(tp.param(p["r"], None))[:, tp.rank * lh:(tp.rank + 1) * lh],
-            "b": tp.copy(tp.param(p["b"], None))[..., cols]}
-    wx = (tp.copy(x) @ tp.copy(tp.param(p["w_in"], None))[:, cols]).float()   # [B, S, 4 ld]
-    zero = torch.zeros((b, ld), device=x.device)
-    carry = (zero, zero, torch.full((b, ld), NEG, device=x.device), zero)
-    return tp.reduce(_slstm_scan(mine, lh, carry, wx, s).to(x.dtype)
-                     @ tp.param(p["w_out"], -2))
+    mine, cols, (c0, c1) = slstm_heads_tp(tp, p, d, n_heads, x.device)
+    wx = (tp.copy(x) @ tp.whole(p["w_in"])[:, cols]).float()          # [B, S, 4 (c1 - c0)]
+    zero = torch.zeros((b, c1 - c0), device=x.device)
+    carry = (zero, zero, torch.full((b, c1 - c0), NEG, device=x.device), zero)
+    return tp.reduce(_slstm_scan(mine, mine["r"].shape[-3], carry, wx, s).to(x.dtype)
+                     @ tp.part(p["w_out"], -2, c0, c1))
 
 
 def slstm_init_state(batch: int, d: int, device="cuda", lead: Tuple[int, ...] = ()

@@ -238,27 +238,39 @@ def _contiguous_stride(shape) -> Tuple[int, ...]:
 
 def _unstack(x):
     """A stacked ``[n_periods, ...]`` leaf as a tuple of its periods
-    (views; a DTensor's periods as DTensors of its layout less dim 0,
-    which the rules never shard)."""
-    from torch.distributed.tensor import DTensor, Shard
+    (views; a DTensor's periods as DTensors of its layout less dim 0). A
+    leaf the rules shard along its period axis (a stacked 1-D leaf whose
+    width the axis does not divide, where it divides the periods) is
+    gathered over that axis first, its periods replicated there."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from ..dist.tensor_parallel import all_gather
     if not isinstance(x, DTensor):
         return tuple(x[i] for i in range(x.shape[0]))
-    if any(isinstance(pl, Shard) and pl.dim == 0 for pl in x.placements):
-        raise ValueError("a stacked leaf sharded along its period axis")
-    pls = [Shard(pl.dim - 1) if isinstance(pl, Shard) else pl for pl in x.placements]
-    loc, shape = x.to_local(), x.shape[1:]
+    loc, pls = x.to_local(), list(x.placements)
+    for i, (name, pl) in enumerate(zip(x.device_mesh.mesh_dim_names, pls)):
+        if isinstance(pl, Shard) and pl.dim == 0:
+            loc, pls[i] = all_gather(loc, 0, x.device_mesh.get_group(name)), Replicate()
+    pls = [Shard(pl.dim - 1) if isinstance(pl, Shard) else pl for pl in pls]
+    shape = x.shape[1:]
     return tuple(DTensor.from_local(loc[i], x.device_mesh, pls, run_check=False, shape=shape,
                                     stride=_contiguous_stride(shape))
                  for i in range(x.shape[0]))
 
 
 def _restack(parts, like):
-    """The periods' gradients ``parts`` as one leaf laid out as ``like``."""
-    from torch.distributed.tensor import DTensor
+    """The periods' gradients ``parts`` as one leaf laid out as ``like``
+    (along a sharded period axis, this rank's periods of the complete
+    gradients)."""
+    from torch.distributed.tensor import DTensor, Shard
+    from ..dist.tensor_parallel import chunk
     if not isinstance(like, DTensor):
         return torch.stack(list(parts))
     stacked = torch.stack([g.to_local() for g in parts])
-    return DTensor.from_local(stacked, like.device_mesh, like.placements, run_check=False,
+    mesh = like.device_mesh
+    for i, pl in enumerate(like.placements):
+        if isinstance(pl, Shard) and pl.dim == 0:
+            stacked = chunk(stacked, 0, mesh.size(i), mesh.get_local_rank(i)).contiguous()
+    return DTensor.from_local(stacked, mesh, like.placements, run_check=False,
                               shape=like.shape, stride=like.stride())
 
 

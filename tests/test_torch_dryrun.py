@@ -30,6 +30,10 @@ tensors over a fake process group. Bars:
   extrapolate to the whole step's FLOPs, bytes and wire bytes exactly;
 - every arch's prefill and decode, whole and in pieces, on a fake (2, 2)
   mesh at a reduced size, the pieces' FLOPs equal to the step's;
+- heads the model axis does not divide: attention with 6 heads over 3
+  KV heads on a fake (1, 4) mesh, forward and backward, traced as rank 0
+  (which holds ceil(6 / 4) = 2 of them), counts exactly 2/6 of one
+  process's FLOPs;
 - (f) the CLI: an ``ok`` record, a ``skipped`` record with the
   reference's reason, ``--skip-existing``, ``--skip-pieces``,
   ``--variant``, and ``--device cuda`` refused without a card.
@@ -272,6 +276,34 @@ def test_serve_steps_and_pieces_trace_on_a_model_axis(arch, kind):
         assert raw["flops"] > 0 and mem["argument_bytes_per_chip"] > 0
         if not cfg.tail:
             assert got["totals"]["flops"] == raw["flops"], (arch, batch)
+
+
+def test_uneven_heads_trace_rank_zeros_share_of_attention():
+    """Rank 0 of a fake (1, 4) mesh runs its 2 of 6 heads (3 KV heads,
+    qkv biases): its attention's FLOPs, forward and every gradient, are
+    exactly ceil(6 / 4) / 6 of one process's."""
+    from repro_torch.dist.tensor_parallel import tp_axis, unwrap
+    from repro_torch.models.attention import attention_block, attention_block_tp, attn_init
+    kw = dict(n_heads=6, n_kv_heads=3, head_dim=8, rope_theta=10000.0, q_chunk=8, kv_chunk=8)
+
+    def attention_flops(dims):
+        with make_fake_mesh(*dims, device="cpu") as mesh, FakeTensorMode(), \
+                compute_mesh(mesh):
+            p = attn_init(torch.Generator().manual_seed(0), 32, 6, 3, 8, True, torch.float32,
+                          "cpu")
+            tp = tp_axis()
+            if tp is not None:
+                assert (tp.size, tp.rank, tp.span(6)) == (4, 0, (0, 2))
+                p = specs.placed_by(p, shd.param_specs(p, mesh), mesh)
+            leaves = [t.requires_grad_(True) for t in p.values()]
+            x = torch.zeros((2, 16, 32), requires_grad=True)
+            with costing.counting(costing.CostMode()) as mode:
+                out = attention_block(p, x, **kw) if tp is None else \
+                    attention_block_tp(tp, unwrap(p), x, **kw)
+                torch.autograd.grad(out.sum(), [x] + leaves)
+            return mode.costs()["flops"]
+    one, rank0 = attention_flops((1, 1)), attention_flops((1, 4))
+    assert rank0 > 0 and rank0 * 6 == one * 2
 
 
 def test_roofline_terms():

@@ -12,8 +12,11 @@ weights are the port's init (norms and biases bumped off it), carried to
 both as numpy; so are the batches. Bars, and why:
 
 - (a) one step on (2, 2) of the reference test's dense config, reduced
-  granite-moe and xlstm-125m, and reduced llama4-maverick with
-  ``fsdp_experts`` (its expert stacks split over 'data' too): against
+  granite-moe and xlstm-125m, reduced llama4-maverick with
+  ``fsdp_experts`` (its expert stacks split over 'data' too), and
+  ``odd-heads``, the dense config with 3 heads over 1 KV head and d_ff 63,
+  none of which the model axis divides (each model rank its uneven range
+  of the heads and of d_ff, `dist.tensor_parallel.TPAxis.span`): against
   JAX's GSPMD step and against one process of the port (each data half's
   gradients averaged in rank order, the data-parallel arithmetic; the MoE
   routes each half's rows on its own, as the reference's ``shard_map``
@@ -32,7 +35,14 @@ both as numpy; so are the batches. Bars, and why:
   embedding shards d_model, the logits are whole) and at 102 (vocab-
   parallel lookup and log-softmax): `train_loss` and its gradients with
   each model pair doing a (1, 2) mesh's work, against one process: the
-  same bars as (a);
+  same bars as (a); and ``UNEVEN``, reduced configs whose heads or
+  channels the pair does not divide: GQA with 6 heads over 3 KV heads
+  (each rank's query heads straddle two KV heads) and an odd expert d_ff,
+  an xLSTM with 1 head (the second rank holds no heads and still joins
+  every collective), an RG-LRU with an odd d_rnn beside 3 attention heads
+  over 1 KV head and an odd d_ff; with them, stacked 1-D leaves the rules
+  shard along the period axis (`b_f`, `lam`); for these also the no-grad
+  `forward` 's logits against one process's, within (a)'s loss bar;
 - (d) a checkpoint written on (2, 2) restores onto (2, 2), onto (4, 1) and
   onto one process bit for bit, and the reference's (2, 2) checkpoint
   restores onto the port's (2, 2) mesh bit for bit;
@@ -44,7 +54,8 @@ both as numpy; so are the batches. Bars, and why:
   process at (a)'s bars, its factored moments laid out by
   ``zero1_opt_specs``; the collective bytes the fake (2, 2) dry run
   (`launch.costing`) predicts for a step equal the bytes the gloo step
-  issues, counted by the same dispatch mode; and a donated step
+  sends, counted by the same dispatch mode (dense, the Adafactor case and
+  ``odd-heads``); and a donated step
   (``donate=True``) gives the functional step's bits in the input's
   buffers for SGD, AdamW and Adafactor.
 """
@@ -89,7 +100,16 @@ STEP_CFGS = {
         fsdp_experts=True)),
 }
 STEP_CFGS["llama4-fsdp-adafactor"] = STEP_CFGS["llama4-fsdp"]
+STEP_CFGS["odd-heads"] = dict(DENSE, n_heads=3, n_kv_heads=1, d_ff=63)
 STEP_OPTS = {"llama4-fsdp-adafactor": "adafactor"}
+# (c) configs whose heads or channels a 2-way model axis does not divide
+UNEVEN = {
+    "gqa-straddle": _fields(_reduce(configs.get_arch("granite-moe-3b-a800m")).with_(
+        n_heads=6, n_kv_heads=3, moe_d_ff=33)),
+    "xlstm-one-head": _fields(_reduce(configs.get_arch("xlstm-125m")).with_(n_heads=1)),
+    "rglru-odd": _fields(_reduce(configs.get_arch("recurrentgemma-2b")).with_(
+        n_heads=3, d_rnn=45, d_ff=95)),
+}
 
 
 def _batch(cfg, rows, seq, seed):
@@ -137,6 +157,9 @@ def tp_run(tmp_path_factory):
             losses[f"{arch}-{vocab}"] = {
                 "cfg": _fields(cfg), "params": _params(_fields(cfg)),
                 "batch": _batch(cfg, 2, 16, seed=vocab)}
+    for i, (name, f) in enumerate(UNEVEN.items()):
+        losses[name] = {"cfg": f, "params": _params(f),
+                        "batch": _batch(ArchConfig(**f), 2, 16, seed=200 + i), "forward": True}
     pipeline = {"tokens": np.arange(8 * 6, dtype=np.int32).reshape(8, 6),
                 "labels": np.arange(8 * 6, dtype=np.int32).reshape(8, 6)[:, ::-1].copy()}
     jax_ckpt = str(root / "jax_ckpt")
@@ -146,8 +169,8 @@ def tp_run(tmp_path_factory):
                         ("tp_batch", dict(batch=pipeline))], 4),
              run_cases([("tp_step", dict(steps["llama4-fsdp-adafactor"],
                                          key="llama4-fsdp-adafactor"))], 4),
-             run_cases([("tp_step", dict(steps[name], key=name)) for name in ("granite", "xlstm")],
-                       4)]
+             run_cases([("tp_step", dict(steps[name], key=name))
+                        for name in ("granite", "xlstm", "odd-heads")], 4)]
     ref = {}
     try:
         ranks = run_ranks("tp", 4, {"steps": steps, "losses": losses, "elastic": "dense",
@@ -319,6 +342,57 @@ def test_tp_train_loss_matches_one_process(tp_run, arch, vocab):
         tp_run["ranks"][2]["losses"][f"{arch}-{vocab}"]["loss"]
 
 
+@pytest.mark.parametrize("name", list(UNEVEN))
+def test_tp_uneven_train_loss_matches_one_process(tp_run, name):
+    """(c) uneven head and channel ranges on each model pair: `train_loss`
+    and its gradients against one process."""
+    case = tp_run["losses"][name]
+    cfg = ArchConfig(**case["cfg"])
+    loss, grads = value_and_grad(lambda p, b: tf.train_loss(p, b, cfg))(
+        tf.params_from_numpy(case["params"], "cpu"), _torch(case["batch"]))
+    ref = _flat(tree_map(lambda x: x.numpy(), grads))
+    for out in tp_run["ranks"]:
+        got = out["losses"][name]
+        assert abs(got["loss"] - float(loss)) <= LOSS_TOL * abs(float(loss))
+        _check_grads(_flat(got["grads"]), ref)
+
+
+@pytest.mark.parametrize("name", list(UNEVEN))
+def test_tp_uneven_forward_matches_one_process(tp_run, name):
+    """(c) the no-grad `forward` on the placed tree (stacked leaves, one
+    split along its period axis gathered): the logits against one
+    process's."""
+    case = tp_run["losses"][name]
+    cfg = ArchConfig(**case["cfg"])
+    with torch.no_grad():
+        logits, _ = tf.forward(tf.params_from_numpy(case["params"], "cpu"),
+                               _torch(case["batch"]), cfg)
+    for out in tp_run["ranks"]:
+        assert _rel_l2(out["losses"][name]["logits"], logits.numpy()) <= LOSS_TOL
+
+
+def test_uneven_head_ranges():
+    """`TPAxis.span`: contiguous ranges that tile the units in rank order,
+    ceil(n / m) on the first n % m ranks and floor(n / m) on the others
+    (rank 0 the most), the equal shard where m divides n."""
+    from types import SimpleNamespace
+    from repro_torch.dist.tensor_parallel import TPAxis
+
+    def spans(n, m):
+        return [TPAxis.span(SimpleNamespace(size=m, rank=r), n) for r in range(m)]
+    assert spans(20, 16) == [(0, 2), (2, 4), (4, 6), (6, 8)] + [(i, i + 1) for i in range(8, 20)]
+    assert spans(20, 3) == [(0, 7), (7, 14), (14, 20)]
+    assert spans(4, 3) == [(0, 2), (2, 3), (3, 4)]
+    assert spans(4, 16) == [(i, i + 1) for i in range(4)] + [(4, 4)] * 12
+    assert spans(24, 4) == [(6 * r, 6 * r + 6) for r in range(4)]
+    for n in range(0, 41):
+        for m in (1, 2, 3, 4, 16):
+            got = spans(n, m)
+            assert [a for a, _ in got[1:]] == [b for _, b in got[:-1]]
+            assert got[0][0] == 0 and got[-1][1] == n
+            assert max(b - a for a, b in got) == got[0][1] - got[0][0] == -(-n // m)
+
+
 def _params_layouts(layouts: dict) -> dict:
     """The ``['params']`` part of a state's layouts, keyed as the params'."""
     return {k[len("['params']"):]: v for k, v in layouts.items() if k.startswith("['params']")}
@@ -405,10 +479,14 @@ def test_tp_adafactor_moments_follow_zero1_specs(tp_run):
     assert any(pl[0].startswith("S") for pl, _, _ in table.values())
 
 
-@pytest.mark.parametrize("name", ["dense", "llama4-fsdp-adafactor"])
+@pytest.mark.parametrize("name", ["dense", "llama4-fsdp-adafactor", "odd-heads"])
 def test_tp_collective_bytes_match_the_dry_run(tp_run, name):
     """(f) the wire bytes the fake (2, 2) dry run counts for a step (its
-    train objects, on fake tensors) equal what the gloo step issued."""
+    train objects, on fake tensors) equal what the gloo step sent on
+    every rank, and so do the FLOPs of rank 0, which the dry run traces;
+    the other model rank counts the same FLOPs where the axis divides the
+    heads and d_ff, fewer where it holds fewer of them (``odd-heads``:
+    1 of 3 heads, 31 of 63 d_ff columns)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from repro_torch.configs.base import SHAPES
     from repro_torch.dist.context import compute_mesh
@@ -423,10 +501,13 @@ def test_tp_collective_bytes_match_the_dry_run(tp_run, name):
         with costing.counting(costing.CostMode()) as mode:
             step(state, batch)
     for out in tp_run["ranks"]:
-        issued = out["steps"][name]["costs"]
-        assert issued["coll_bytes"] == mode.costs()["coll_bytes"] > 0
-        assert issued["coll_detail"] == mode.costs()["coll_detail"]
-        assert issued["flops"] == mode.costs()["flops"]
+        sent = out["steps"][name]["costs"]
+        assert sent["coll_bytes"] == mode.costs()["coll_bytes"] > 0
+        assert sent["coll_detail"] == mode.costs()["coll_detail"]
+        if out["coords"][1] == 0 or name != "odd-heads":
+            assert sent["flops"] == mode.costs()["flops"]
+        else:
+            assert 0 < sent["flops"] < mode.costs()["flops"]
 
 
 @pytest.mark.parametrize("opt", ["sgd", "adamw", "adafactor"])

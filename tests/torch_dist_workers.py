@@ -246,8 +246,10 @@ def case_tp(rank, world, inp, device):
     data rank (each model pair does a (1, 2) mesh's work); the elastic
     checkpoint (written here on (2, 2), restored onto (2, 2), (4, 1) and one
     process) and the reference's (2, 2) checkpoint restored onto (2, 2);
-    the rows a `DataPipeline` on the mesh hands this rank."""
+    the rows a `DataPipeline` on the mesh hands this rank. A ``losses``
+    case with ``forward`` also gives its no-grad `forward` 's logits."""
     import time
+    import torch
     from repro_torch.configs.base import ArchConfig
     from repro_torch.data.pipeline import DataPipeline
     from repro_torch.dist import sharding as shd
@@ -313,6 +315,10 @@ def case_tp(rank, world, inp, device):
             loss, grads = value_and_grad(lambda p, b: tf.train_loss(p, b, cfg))(
                 placed, _tensors(case["batch"], device))
             out["losses"][name] = {"loss": float(loss), "grads": _numpy(shd.gather(grads))}
+            if case.get("forward"):          # the stacked leaves as they are, no autograd
+                with torch.no_grad():
+                    logits, _ = tf.forward(placed, _tensors(case["batch"], device), cfg)
+                out["losses"][name]["logits"] = _numpy(shd.full_tensor(logits))
     # the reference's checkpoint, written on its (2, 2) mesh beside these ranks
     jax_dir, deadline = inp["jax_ckpt"], time.time() + 300
     while not os.path.exists(os.path.join(jax_dir, "step_00000001", "manifest.json")):
