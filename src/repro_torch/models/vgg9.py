@@ -35,6 +35,7 @@ from ..core.coding import direct_code, rate_code
 from ..core.lif import LIFParams, lif_step
 from ..core.quant import fake_quant
 from ..device import resolve_device
+from ..obs.trace import device_mark
 
 
 @dataclasses.dataclass(frozen=True)
@@ -244,6 +245,11 @@ def vgg9_infer_hybrid(params: Dict, images, cfg: VGG9Config, *, device="cuda",
     each occupancy-mapped conv (see `spike_conv2d_mapped`) plus per-image
     input/output spike counts ([B] vectors) for every layer — what the
     serving runner splits back out per request.
+
+    Under an open `obs` step record, on a card, the layers are marked on
+    the device (`obs.trace.device_mark`): ``vgg9.conv0`` (the dense core),
+    ``vgg9.conv1`` ... (each sparse core, its 2x2 pool included),
+    ``vgg9.fc0``, ``vgg9.fc1``.
     """
     from ..core.hybrid import plan_vgg9_inference
     from ..kernels.dense_conv_lif.ops import input_layer_conv_lif
@@ -264,6 +270,7 @@ def vgg9_infer_hybrid(params: Dict, images, cfg: VGG9Config, *, device="cuda",
         return lif_epilogue_scan(cur_t, bias, beta=cfg.beta, theta=cfg.theta)
 
     # Dense core: input layer, conv once + T fused LIF steps (one launch).
+    device_mark("vgg9.input", images, starts=True)
     ks0 = plan.layer("conv0").kernel
     spikes, _ = input_layer_conv_lif(
         images, qp["conv0"]["w"], qp["conv0"]["b"],
@@ -277,11 +284,13 @@ def vgg9_infer_hybrid(params: Dict, images, cfg: VGG9Config, *, device="cuda",
     # Sparse cores: timesteps folded into the batch — one occupancy-mapped
     # gated matmul per layer, then the T-step LIF epilogue.
     x = spikes.reshape((t * b,) + spikes.shape[2:])      # [T*B, H, W, C]
+    done = "conv0"                                       # marked once its pool ran
     for kind, idx in _stage_plan(cfg):
         if kind == "MP":
             x = _maxpool_spikes(x)
             continue
-        name = f"conv{idx}"
+        device_mark(f"vgg9.{done}", x)
+        name = done = f"conv{idx}"
         ks = plan.layer(name).kernel
         cur, st = spike_conv2d_mapped(
             x, qp[name]["w"], block_m=ks.block_m, block_k=ks.block_k,
@@ -299,6 +308,7 @@ def vgg9_infer_hybrid(params: Dict, images, cfg: VGG9Config, *, device="cuda",
 
     # FC layers: same folding; the product is a plain matmul, the bias rides
     # in the epilogue.
+    device_mark(f"vgg9.{done}", x)
     flat = x.reshape(t * b, -1)
     for name in ("fc0", "fc1"):
         w2d = qp[name]["w"]
@@ -310,6 +320,7 @@ def vgg9_infer_hybrid(params: Dict, images, cfg: VGG9Config, *, device="cuda",
             stats[name] = {"in_spikes_per_image": in_per_image,
                            "out_spikes_per_image": s_seq.sum(dim=(0, 2))}
         flat = s_seq.reshape(t * b, -1)
+        device_mark(f"vgg9.{name}", flat)
 
     group = cfg.population // cfg.num_classes
     pop = s_seq.sum(0)                                   # [B, P] spike counts over T

@@ -4,7 +4,10 @@ One `Observability` bundle rides an `EngineCore` (or a `Router`) and turns
 the values the engine already computed into three artifacts:
 
 * a request-lifecycle **trace** (`obs.trace.Tracer` — submit -> admit ->
-  prefill-chunk* -> decode|speculate|infer -> terminal status),
+  prefill-chunk* -> decode|speculate|infer -> terminal status), and the
+  tracer's **step records** (`Tracer.steps` — per engine step, the seconds
+  of each named phase inside it, counters, and device milliseconds per
+  model layer on a card; see `obs.trace`),
 * a typed **metrics** snapshot (`obs.metrics.MetricsRegistry` — goodput
   counters, queue gauges, step-seconds histograms, plus whatever the
   scheduler / precision controller publish through ``metrics_into``),
@@ -15,8 +18,11 @@ the values the engine already computed into three artifacts:
 The contract, tested in ``tests/test_torch_obs.py``: attached
 vs. detached is **bit-identical** on every `Result` and every scheduler
 decision. The hooks only *receive* values (clock readings, reports,
-results) that the engine read anyway — nothing here calls a clock,
-advances an RNG, or mutates engine state.
+results) that the engine read anyway — nothing here reads the engine's
+clock, advances an RNG, or mutates engine state. Step records read
+``time.perf_counter`` (and, on a card, record CUDA events), never the
+engine's clock, and the engine keeps them only while a tracer is
+attached.
 
 Hook order per engine step (see `serve/core.py`):
 

@@ -1,4 +1,4 @@
-"""Request-lifecycle tracing: deterministic spans over the engine clock.
+"""Request-lifecycle tracing over the engine clock, and step records.
 
 A trace is a list of `Span`s with parent/child ids covering one request's
 life through the serving stack:
@@ -16,19 +16,43 @@ life through the serving stack:
 
 Timestamps are whatever clock the engine runs (`core.StepClock` /
 `faults.TickClock` in tests and benches), recorded from values the engine
-*already read* — the tracer never touches a clock itself, so attaching it
-cannot perturb deadlines or scheduling (the no-perturbation contract
-`tests/test_torch_obs.py` asserts bit-identically).
+*already read* — the lifecycle spans never touch a clock themselves, so
+attaching them cannot perturb deadlines or scheduling (the no-perturbation
+contract `tests/test_torch_obs.py` asserts bit-identically).
 
 Fleet traces: each replica traces locally; `Tracer.drain` hands closed
 spans to the transport (in-process directly, over the wire via the
 heartbeat's telemetry field) and `merge_traces` namespaces span ids by
 replica label into one ordered trace for the whole run.
+
+Step records (`Tracer.steps`, a ring of the last `STEP_RING` steps) time
+the phases *inside* each engine step. `Tracer.record_step` opens one and
+publishes it in a context variable, the way `dist.context` publishes the
+mesh; the module functions `span`, `count` and `device_mark` add to the
+record that is open, from any layer below the engine, and do nothing else
+when none is (one context-variable read). A record holds, per span name,
+its seconds summed over the step's calls and its parent's name, named
+counters, and device milliseconds between consecutive `device_mark`s.
+Spans read `time.perf_counter`, never the engine's clock, so deadlines and
+admission stay bit-identical; each also opens a
+``torch.profiler.record_function`` range of its name, so a profiler trace
+shows the program's phases on its own timeline. Device marks are CUDA
+events on the current stream, resolved when the step closes, with no
+synchronize: a runner's step ends in blocking reads of its results, which
+have waited for them (a step whose last event is not yet done keeps no
+device times). Step records are kept apart from `export`, `drain` and the
+metrics: readers take ``tracer.steps`` in process, or `latest_steps()`
+(the ring of the tracer that closed the latest record) where they do not
+hold the bundle.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
+import contextvars
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+import time
+from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
 
 #: terminal statuses a root span may close with (mirrors `api.Result.status`
 #: plus the router-side 'rejected')
@@ -68,10 +92,12 @@ class Span:
 class Tracer:
     """Per-engine (or per-router) span recorder.
 
-    All methods take the clock value and step index as arguments — the
-    caller passes readings it already made. Unknown request ids are
-    ignored (a request may retire from the queue without ever being
-    admitted, or a replica may join a trace mid-life after a re-route).
+    The lifecycle methods take the clock value and step index as
+    arguments — the caller passes readings it already made. Unknown
+    request ids are ignored (a request may retire from the queue without
+    ever being admitted, or a replica may join a trace mid-life after a
+    re-route). `record_step` keeps the step records (`steps`), on
+    ``time.perf_counter``.
     """
 
     def __init__(self):
@@ -82,6 +108,8 @@ class Tracer:
         self._queued: Dict[int, Span] = {}   # request_id -> open queued span
         self._phase: Dict[int, Span] = {}    # request_id -> open phase span
         self._drained = 0                    # spans[:_drained] already shipped
+        #: the last `STEP_RING` closed step records, oldest first
+        self.steps: Deque[StepRecord] = collections.deque(maxlen=STEP_RING)
 
     def _open(self, name: str, rid: int, step: int, now: float,
               parent: Optional[Span] = None, **attrs: Any) -> Span:
@@ -170,6 +198,138 @@ class Tracer:
             [s for s in self.spans[self._drained:] if s.closed] + kept
         self._drained = len(self.spans) - len(kept)
         return [s.to_dict() for s in out]
+
+    # -- step records -------------------------------------------------------
+
+    @contextlib.contextmanager
+    def record_step(self, step: int):
+        """Open the step record of engine step ``step`` for the ``with``
+        body: `span`, `count` and `device_mark` add to it. It is closed,
+        and the context variable reset, however the body ends."""
+        global _LATEST
+        open_step = _OpenStep(StepRecord(step, time.perf_counter()))
+        token = _OPEN.set(open_step)
+        try:
+            yield open_step.record
+        finally:
+            _OPEN.reset(token)
+            open_step.record.end_s = time.perf_counter()
+            open_step.resolve_marks()
+            self.steps.append(open_step.record)
+            _LATEST = self.steps
+
+
+#: step records a `Tracer` keeps
+STEP_RING = 1024
+
+
+@dataclasses.dataclass
+class StepRecord:
+    """The phases of one engine step. ``start_s``/``end_s`` are
+    ``time.perf_counter`` readings; ``seconds[name]`` sums a span name's
+    calls in the step and ``parent[name]`` is the span that was open when
+    it first opened (None for a root); ``device_ms[name]`` sums the device
+    time between consecutive marks on one device, credited to the later
+    mark's name (`device_mark`)."""
+    step: int
+    start_s: float
+    end_s: Optional[float] = None
+    seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
+    parent: Dict[str, Optional[str]] = dataclasses.field(default_factory=dict)
+    counters: Dict[str, float] = dataclasses.field(default_factory=dict)
+    device_ms: Dict[str, float] = dataclasses.field(default_factory=dict)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+
+class _OpenStep:
+    """A record while its step runs: the open spans and the device marks."""
+
+    def __init__(self, record: StepRecord):
+        self.record = record
+        self.stack: List[str] = []
+        self.marks: List[tuple] = []         # (name, event, device, starts)
+
+    def resolve_marks(self) -> None:
+        """Turn the marks into ``device_ms``, if each device's last event
+        is done (it is once the step has read its results to the host);
+        else the step keeps no ``device_ms``."""
+        last = {device: event for _, event, device, _ in self.marks}
+        if not all(event.query() for event in last.values()):
+            return
+        device_ms = self.record.device_ms
+        for (_, ev0, dev0, _), (name, ev1, dev1, starts) in zip(self.marks, self.marks[1:]):
+            if not starts and dev0 == dev1:
+                device_ms[name] = device_ms.get(name, 0.0) + ev0.elapsed_time(ev1)
+
+
+class _Span:
+    __slots__ = ("step", "name", "range", "t0")
+
+    def __init__(self, step: _OpenStep, name: str):
+        self.step, self.name = step, name
+
+    def __enter__(self):
+        from torch.profiler import record_function
+        step, name = self.step, self.name
+        step.record.parent.setdefault(name, step.stack[-1] if step.stack else None)
+        step.stack.append(name)
+        self.range = record_function(name)
+        self.range.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        seconds = time.perf_counter() - self.t0
+        self.range.__exit__(*exc)
+        self.step.stack.pop()
+        timed = self.step.record.seconds
+        timed[self.name] = timed.get(self.name, 0.0) + seconds
+        return False
+
+
+_OPEN: contextvars.ContextVar = contextvars.ContextVar("repro_torch_obs_step", default=None)
+_OFF = contextlib.nullcontext()
+_LATEST: Deque[StepRecord] = collections.deque()
+
+
+def latest_steps() -> Deque[StepRecord]:
+    """The step ring of the tracer that closed this process's latest step
+    record (empty before any): for an in-process reader that does not hold
+    the engine's bundle, such as a benchmark reading a run it has finished.
+    With several traced engines in one process, it follows whichever
+    stepped last."""
+    return _LATEST
+
+
+def span(name: str):
+    """A context manager timing ``name`` into the open step record (and a
+    ``record_function`` range of it); a shared no-op when none is open."""
+    step = _OPEN.get()
+    return _OFF if step is None else _Span(step, name)
+
+
+def count(name: str, n: float = 1) -> None:
+    """Add ``n`` to the open step record's counter ``name``."""
+    step = _OPEN.get()
+    if step is not None:
+        counters = step.record.counters
+        counters[name] = counters.get(name, 0) + n
+
+
+def device_mark(name: str, like, *, starts: bool = False) -> None:
+    """Record a CUDA event on the current stream of ``like``'s device, if
+    a step record is open and ``like`` is a CUDA tensor. The device time
+    from the previous mark on that device to this one is credited to
+    ``name``; a mark that ``starts`` a run of marks is credited nothing."""
+    step = _OPEN.get()
+    if step is None or not like.is_cuda:
+        return
+    import torch
+    event = torch.cuda.Event(enable_timing=True)
+    event.record(torch.cuda.current_stream(like.device))
+    step.marks.append((name, event, like.device, starts))
 
 
 def merge_traces(parts: Sequence[Tuple[Any, Sequence[Dict[str, Any]]]]

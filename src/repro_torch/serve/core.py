@@ -59,6 +59,14 @@ Request lifecycle beyond completion (continuous admission):
 Per-step occupancy/goodput accounting lives on `stats()`; the admission
 history (which requests entered which step) on `admission_log`.
 
+Step phases: with an `obs` bundle whose tracer is on, each `step()` keeps
+a step record (`obs.trace.Tracer.record_step`, on ``time.perf_counter``)
+with the spans ``engine.step`` (the whole step), ``engine.admit`` (expiry,
+the scheduler's selection and budget, admission), ``engine.session_step``
+(the session's step, or the batch path's runner call), ``engine.screen``
+(the numerics screen) and ``engine.retire`` (partials, the step hooks,
+completions); runners add their own spans beneath ``engine.session_step``.
+
 Numpy only: a copy of the JAX package's serve/core.py, kept so the
 port stands alone.
 """
@@ -71,6 +79,7 @@ from typing import Any, Callable, Dict, Hashable, List, Optional, Tuple
 
 import numpy as np
 
+from ..obs.trace import span
 from .api import (EngineConfig, EngineStalled, ModelRunner, QueueFull,
                   Request, Result, RunnerSession, SlotProgress, StepBudget,
                   SubmitSpec)
@@ -345,8 +354,16 @@ class EngineCore:
         """Advance the engine; returns #requests completed.
 
         continuous: refill freed slots from the queue, then run one session
-        iteration. batch: form and run one batch to completion.
+        iteration. batch: form and run one batch to completion. With a
+        tracer attached, the step's phases go into its step record.
         """
+        tracer = None if self.obs is None else self.obs.tracer
+        if tracer is None:
+            return self._step()
+        with tracer.record_step(self._steps_run), span("engine.step"):
+            return self._step()
+
+    def _step(self) -> int:
         if self.config.admission == "batch":
             return self._step_batch()
         return self._step_continuous()
@@ -421,66 +438,68 @@ class EngineCore:
     # -- continuous admission ------------------------------------------------
 
     def _step_continuous(self) -> int:
-        done = 0
-        now = self._clock()
-        tick = getattr(self.scheduler, "on_clock", None)
-        if tick is not None:        # select()'s signature carries no clock
-            tick(now)
-        self._expire_due(now)
-        free = [s for s in self.slots if s.request_id is None]
-        resident = self.config.slots - len(free)
-        if (resident and self._queue
-                and self.runner.session_key(self._queue[0]) != self._session_key):
-            # the *oldest* queued request needs a different session: stop
-            # refilling and let the residents drain so its key takes over —
-            # PR-2's oldest-bucket-first fairness at session granularity.
-            # Without this, a steady same-key stream arriving behind it
-            # would keep the session resident and starve it forever.
-            free = []
-        if self._queue and free:
-            active_key = self._session_key if resident else None
-            picks = self.scheduler.select(
-                tuple(self._queue), len(free),
-                key_fn=self.runner.session_key, active_key=active_key)
-            if picks:
-                key = self._take_from_queue(picks, self.runner.session_key)
-                assert active_key is None or key == active_key, (key, active_key)
-                if resident == 0 and (self._session is None
-                                      or key != self._session_key):
-                    # no live work: safe to swap in a session for the new key
-                    self._session = self.runner.open_session(self.config.slots)
-                    self._session_key = key
-                self.admission_log.append(
-                    (self._steps_run, [r.request_id for r in picks]))
-                if self.obs is not None:
-                    self.obs.on_admit([r.request_id for r in picks],
-                                      self._steps_run, now)
-                for req, slot in zip(picks, free):
-                    slot.acquire(req.request_id)
-                    self._resident[req.request_id] = req
-                    self.scheduler.on_admit(req)
-                    immediate = self._session.admit(slot.index, req)
-                    if immediate is not None:   # degenerate request: 0 work
-                        self._complete(slot, immediate)
-                        done += 1
-            elif resident == 0:
-                raise RuntimeError(
-                    "scheduler admitted nothing into an idle engine with a "
-                    "non-empty queue (Scheduler.select contract: with "
-                    "active_key=None it must pick at least one request)")
+        with span("engine.admit"):
+            done = 0
+            now = self._clock()
+            tick = getattr(self.scheduler, "on_clock", None)
+            if tick is not None:        # select()'s signature carries no clock
+                tick(now)
+            self._expire_due(now)
+            free = [s for s in self.slots if s.request_id is None]
+            resident = self.config.slots - len(free)
+            if (resident and self._queue
+                    and self.runner.session_key(self._queue[0]) != self._session_key):
+                # the *oldest* queued request needs a different session: stop
+                # refilling and let the residents drain so its key takes over —
+                # the batch path's oldest-bucket-first fairness at session granularity.
+                # Without this, a steady same-key stream arriving behind it
+                # would keep the session resident and starve it forever.
+                free = []
+            if self._queue and free:
+                active_key = self._session_key if resident else None
+                picks = self.scheduler.select(
+                    tuple(self._queue), len(free),
+                    key_fn=self.runner.session_key, active_key=active_key)
+                if picks:
+                    key = self._take_from_queue(picks, self.runner.session_key)
+                    assert active_key is None or key == active_key, (key, active_key)
+                    if resident == 0 and (self._session is None
+                                          or key != self._session_key):
+                        # no live work: safe to swap in a session for the new key
+                        self._session = self.runner.open_session(self.config.slots)
+                        self._session_key = key
+                    self.admission_log.append(
+                        (self._steps_run, [r.request_id for r in picks]))
+                    if self.obs is not None:
+                        self.obs.on_admit([r.request_id for r in picks],
+                                          self._steps_run, now)
+                    for req, slot in zip(picks, free):
+                        slot.acquire(req.request_id)
+                        self._resident[req.request_id] = req
+                        self.scheduler.on_admit(req)
+                        immediate = self._session.admit(slot.index, req)
+                        if immediate is not None:   # degenerate request: 0 work
+                            self._complete(slot, immediate)
+                            done += 1
+                elif resident == 0:
+                    raise RuntimeError(
+                        "scheduler admitted nothing into an idle engine with a "
+                        "non-empty queue (Scheduler.select contract: with "
+                        "active_key=None it must pick at least one request)")
 
-        occupied = [s for s in self.slots if s.request_id is not None]
-        if not occupied:
-            return done
+            occupied = [s for s in self.slots if s.request_id is not None]
+            if not occupied:
+                return done
 
-        budget = StepBudget(chunk=self.config.prefill_chunk)
-        plan = getattr(self.scheduler, "plan_step", None)
-        if plan is not None:
-            residents = {s.index: self._resident[s.request_id] for s in occupied}
-            budget = plan(residents, dict(self._progress), now=now,
-                          default=budget)
+            budget = StepBudget(chunk=self.config.prefill_chunk)
+            plan = getattr(self.scheduler, "plan_step", None)
+            if plan is not None:
+                residents = {s.index: self._resident[s.request_id] for s in occupied}
+                budget = plan(residents, dict(self._progress), now=now,
+                              default=budget)
         t0 = self._clock()
-        report = self._session.step(budget)
+        with span("engine.session_step"):
+            report = self._session.step(budget)
         self._steps_run += 1          # before the clock read: a step-counting
         self._batches_run += 1        # clock must see this step as elapsed
         seconds = self._clock() - t0
@@ -494,58 +513,60 @@ class EngineCore:
         # with status='failed' before the poison can stream to the caller or
         # feed the slot's next step — batchmates are row-independent, so the
         # retirement never perturbs them.
-        poisoned: Dict[int, SlotProgress] = {}
-        if self.config.numerics_screen:
+        with span("engine.screen"):
+            poisoned: Dict[int, SlotProgress] = {}
+            if self.config.numerics_screen:
+                for idx, prog in report.progress.items():
+                    res = report.finished.get(idx)
+                    if not all_finite(prog.emitted) or (
+                            res is not None and not (all_finite(res.outputs)
+                                                     and all_finite(res.stats))):
+                        poisoned[idx] = prog
+
+        with span("engine.retire"):
+            self._progress = dict(report.progress)
             for idx, prog in report.progress.items():
-                res = report.finished.get(idx)
-                if not all_finite(prog.emitted) or (
-                        res is not None and not (all_finite(res.outputs)
-                                                 and all_finite(res.stats))):
-                    poisoned[idx] = prog
+                if prog.emitted and idx not in poisoned:
+                    self._partials.setdefault(prog.request_id, []).extend(prog.emitted)
+            hook = getattr(self.scheduler, "on_report", None)
+            if hook is not None:
+                hook(report, seconds=seconds, now=self._clock())
+            self.last_report = report
+            if self.obs is not None:
+                self.obs.on_step(
+                    report, step=self._steps_run - 1, now=t0 + seconds,
+                    seconds=seconds, queue_len=len(self._queue),
+                    occupied=len(occupied),
+                    poisoned=[p.request_id for p in poisoned.values()])
 
-        self._progress = dict(report.progress)
-        for idx, prog in report.progress.items():
-            if prog.emitted and idx not in poisoned:
-                self._partials.setdefault(prog.request_id, []).extend(prog.emitted)
-        hook = getattr(self.scheduler, "on_report", None)
-        if hook is not None:
-            hook(report, seconds=seconds, now=self._clock())
-        self.last_report = report
-        if self.obs is not None:
-            self.obs.on_step(
-                report, step=self._steps_run - 1, now=t0 + seconds,
-                seconds=seconds, queue_len=len(self._queue),
-                occupied=len(occupied),
-                poisoned=[p.request_id for p in poisoned.values()])
-
-        for idx, res in report.finished.items():
-            slot = self.slots[idx]
-            assert slot.request_id == res.request_id, (slot.request_id,
-                                                       res.request_id)
-            self._progress.pop(idx, None)
-            if idx in poisoned:
-                # finished but poisoned: surface the result as 'failed'
-                # (outputs/stats kept for diagnosis; clean partials already
-                # streamed stay available through poll_partial)
-                res = dataclasses.replace(res, status="failed")
-                req = self._resident.pop(res.request_id)
-                self.scheduler.observe(req, res)
-                self._results[res.request_id] = res
-                slot.release()
-                self._failed += 1
-                self._obs_retire(res)
-                continue
-            self._complete(slot, res)
-            done += 1
-        for idx, prog in poisoned.items():
-            # mid-flight poison: reclaim the slot via the cancel path — the
-            # session rebuilds a clean partial Result (the poison lived only
-            # in the reported outputs, e.g. a fault wrapper's injection)
-            if idx not in report.finished and prog.request_id in self._resident:
-                self.cancel(prog.request_id, status="failed")
-        if poisoned and self.obs is not None:
-            self.obs.on_dump("numerics-poison", self._steps_run - 1,
-                             rids=[p.request_id for p in poisoned.values()])
+            for idx, res in report.finished.items():
+                slot = self.slots[idx]
+                assert slot.request_id == res.request_id, (slot.request_id,
+                                                           res.request_id)
+                self._progress.pop(idx, None)
+                if idx in poisoned:
+                    # finished but poisoned: surface the result as 'failed'
+                    # (outputs/stats kept for diagnosis; clean partials already
+                    # streamed stay available through poll_partial)
+                    res = dataclasses.replace(res, status="failed")
+                    req = self._resident.pop(res.request_id)
+                    self.scheduler.observe(req, res)
+                    self._results[res.request_id] = res
+                    slot.release()
+                    self._failed += 1
+                    self._obs_retire(res)
+                    continue
+                self._complete(slot, res)
+                done += 1
+            for idx, prog in poisoned.items():
+                # mid-flight poison: reclaim the slot via the cancel path — the
+                # session rebuilds a clean partial Result (the poison lived only
+                # in the reported outputs, e.g. a fault wrapper's injection)
+                if idx not in report.finished and prog.request_id in self._resident:
+                    self.cancel(prog.request_id, status="failed")
+            if poisoned and self.obs is not None:
+                self.obs.on_dump("numerics-poison", self._steps_run - 1,
+                                 rids=[p.request_id for p in poisoned.values()])
         return done
 
     # -- run-to-completion batching (PR-2 semantics) -------------------------
@@ -553,39 +574,42 @@ class EngineCore:
     def _step_batch(self) -> int:
         if not self._queue:
             return 0
-        picks = self.scheduler.select(
-            tuple(self._queue), self.config.slots,
-            key_fn=self.runner.bucket_key, active_key=None)
-        assert picks, "Scheduler.select returned nothing for an idle engine"
-        self._take_from_queue(picks, self.runner.bucket_key)
-        self.admission_log.append(
-            (self._steps_run, [r.request_id for r in picks]))
-        if self.obs is not None:
-            self.obs.on_admit([r.request_id for r in picks],
-                              self._steps_run, self._clock())
+        with span("engine.admit"):
+            picks = self.scheduler.select(
+                tuple(self._queue), self.config.slots,
+                key_fn=self.runner.bucket_key, active_key=None)
+            assert picks, "Scheduler.select returned nothing for an idle engine"
+            self._take_from_queue(picks, self.runner.bucket_key)
+            self.admission_log.append(
+                (self._steps_run, [r.request_id for r in picks]))
+            if self.obs is not None:
+                self.obs.on_admit([r.request_id for r in picks],
+                                  self._steps_run, self._clock())
 
-        batch: List[Request] = list(picks)
-        for slot, req in zip(self.slots, batch):
-            slot.acquire(req.request_id)
-            self._resident[req.request_id] = req
-            self.scheduler.on_admit(req)
-        # pad to the full slot count: the runner always sees static shapes
-        while len(batch) < self.config.slots:
-            batch.append(self.runner.filler(batch[0]))
+            batch: List[Request] = list(picks)
+            for slot, req in zip(self.slots, batch):
+                slot.acquire(req.request_id)
+                self._resident[req.request_id] = req
+                self.scheduler.on_admit(req)
+            # pad to the full slot count: the runner always sees static shapes
+            while len(batch) < self.config.slots:
+                batch.append(self.runner.filler(batch[0]))
 
-        results = self.runner.run(batch)
+        with span("engine.session_step"):
+            results = self.runner.run(batch)
         assert len(results) == self.config.slots, (
             f"runner returned {len(results)} results for {self.config.slots} slots")
 
         done = 0
-        for slot, (req, res) in zip(self.slots, zip(batch, results)):
-            if req.is_pad:
-                continue
-            assert res.request_id == req.request_id, (res.request_id, req.request_id)
-            self._complete(slot, res)
-            done += 1
-        for slot in self.slots:
-            slot.release()                 # pad slots; real ones already free
+        with span("engine.retire"):
+            for slot, (req, res) in zip(self.slots, zip(batch, results)):
+                if req.is_pad:
+                    continue
+                assert res.request_id == req.request_id, (res.request_id, req.request_id)
+                self._complete(slot, res)
+                done += 1
+            for slot in self.slots:
+                slot.release()                 # pad slots; real ones already free
         self._batches_run += 1
         self._steps_run += 1
         self._occupied_slot_steps += len(picks)

@@ -29,6 +29,26 @@ weights replicated, and the per-shard occupancy counters re-assembled so
 that every per-request stat (logits, skip rate, spike counts, energy) is
 the unsharded run's. `EngineCore` needs no change. A process-group mesh
 (training's) is not a serving mesh and is ignored.
+
+Step phases (`obs.trace` spans, kept in the engine's step record when a
+tracer is attached; the same names on the sharded path), all beneath
+``engine.session_step``:
+
+* ``snn.stack`` — the request payloads stacked onto the device;
+* ``snn.forward`` — the `vgg9_infer_hybrid` call. CUDA launches return
+  before the device is done, so this is the time to enqueue the forward,
+  unless a caller wraps the call with synchronizes (the benchmark's traced
+  runs do), when it holds the device's work too;
+* ``snn.read`` — every read of a device value to the host (``_host``,
+  ``float``, ``int``), the wait for the device included;
+* ``snn.skip_split`` — `_per_request_skip`;
+* ``snn.ts_occupancy`` — `_per_timestep_occupancy`;
+* ``snn.energy`` — every `SNNRunner._energy_estimate` call;
+* ``snn.results`` — building the `Result`s.
+
+One counter: ``snn.fillers``, the zero-image filler slots of a session
+step (`_SNNSession.step`). The pipeline marks its layers on the device
+(`models.vgg9.vgg9_infer_hybrid`).
 """
 from __future__ import annotations
 
@@ -45,6 +65,7 @@ from ...dist.context import current_mesh
 from ...launch.mesh import DataMesh
 from ...models.vgg9 import (VGG9Config, conv_names, vgg9_infer_hybrid,
                             vgg9_infer_hybrid_sharded)
+from ...obs.trace import count, span
 from ..api import (PAD_REQUEST_ID, Request, Result, SlotProgress, StepBudget,
                    StepReport)
 
@@ -134,12 +155,14 @@ class SNNRunner:
 
     def _run(self, images: torch.Tensor, n: int):
         plan = self.plan(n)
-        logits, _, stats = vgg9_infer_hybrid(
-            self.params, images, self.cfg, device=self.device, plan=plan,
-            return_stats=True)
-        batch_skip = {k: float(v["skip_rate"]) for k, v in stats.items()
-                      if "skip_rate" in v}
-        out_spikes, in_spikes = _spikes_per_image(stats)
+        with span("snn.forward"):
+            logits, _, stats = vgg9_infer_hybrid(
+                self.params, images, self.cfg, device=self.device, plan=plan,
+                return_stats=True)
+        with span("snn.read"):
+            batch_skip = {k: float(v["skip_rate"]) for k, v in stats.items()
+                          if "skip_rate" in v}
+            out_spikes, in_spikes = _spikes_per_image(stats)
 
         per_req_skip: Dict[str, np.ndarray] = {}
         ts_occ: Dict[str, np.ndarray] = {}
@@ -148,14 +171,18 @@ class SNNRunner:
                 continue
             ks = plan.layer(name).kernel
             rps = ks.m // (self.cfg.timesteps * n)
-            row_occ = _host(st["row_occ"])
-            rows = int(st["rows"])
-            per_req_skip[name] = _per_request_skip(
-                row_occ, int(st["block_m"]), rows, rows_per_slice=rps, batch=n)
-            ts_occ[name] = _per_timestep_occupancy(
-                row_occ, rows, rows_per_slice=rps, batch=n)
-        return (_host(logits), batch_skip, out_spikes, in_spikes,
-                per_req_skip, ts_occ)
+            with span("snn.read"):
+                row_occ = _host(st["row_occ"])
+                rows, block_m = int(st["rows"]), int(st["block_m"])
+            with span("snn.skip_split"):
+                per_req_skip[name] = _per_request_skip(
+                    row_occ, block_m, rows, rows_per_slice=rps, batch=n)
+            with span("snn.ts_occupancy"):
+                ts_occ[name] = _per_timestep_occupancy(
+                    row_occ, rows, rows_per_slice=rps, batch=n)
+        with span("snn.read"):
+            logits = _host(logits)
+        return (logits, batch_skip, out_spikes, in_spikes, per_req_skip, ts_occ)
 
     def _data_shards(self, n: int) -> int:
         """How many ways to split a slot batch: the ambient in-process
@@ -179,12 +206,14 @@ class SNNRunner:
         request's own rows gives the same served-alone skip rate."""
         b_local = n // ndev
         plan = self.plan(b_local)
-        logits, _, stats = vgg9_infer_hybrid_sharded(
-            self.params, images, self.cfg, mesh=current_mesh(), plan=plan,
-            return_stats=True)
-        batch_skip = {k: float(_host(v["skip_rate"]).mean()) for k, v in stats.items()
-                      if "skip_rate" in v}
-        out_spikes, in_spikes = _spikes_per_image(stats)
+        with span("snn.forward"):
+            logits, _, stats = vgg9_infer_hybrid_sharded(
+                self.params, images, self.cfg, mesh=current_mesh(), plan=plan,
+                return_stats=True)
+        with span("snn.read"):
+            batch_skip = {k: float(_host(v["skip_rate"]).mean()) for k, v in stats.items()
+                          if "skip_rate" in v}
+            out_spikes, in_spikes = _spikes_per_image(stats)
 
         per_req_skip: Dict[str, np.ndarray] = {}
         ts_occ: Dict[str, np.ndarray] = {}
@@ -193,24 +222,30 @@ class SNNRunner:
             if "occ_map" not in st:
                 continue
             rps = plan.layer(name).kernel.m // (t * b_local)
-            row_occ, rows, block_m = _host(st["row_occ"]), _host(st["rows"]), _host(st["block_m"])
+            with span("snn.read"):
+                row_occ, rows, block_m = (_host(st["row_occ"]), _host(st["rows"]),
+                                          _host(st["block_m"]))
             skip = np.zeros(n)
             occ_t = np.zeros((t, n))
             for d in range(ndev):
                 sl = slice(d * b_local, (d + 1) * b_local)
-                skip[sl] = _per_request_skip(row_occ[d], int(block_m[d]), int(rows[d]),
-                                             rows_per_slice=rps, batch=b_local)
-                occ_t[:, sl] = _per_timestep_occupancy(row_occ[d], int(rows[d]),
-                                                       rows_per_slice=rps, batch=b_local)
+                with span("snn.skip_split"):
+                    skip[sl] = _per_request_skip(row_occ[d], int(block_m[d]), int(rows[d]),
+                                                 rows_per_slice=rps, batch=b_local)
+                with span("snn.ts_occupancy"):
+                    occ_t[:, sl] = _per_timestep_occupancy(row_occ[d], int(rows[d]),
+                                                           rows_per_slice=rps, batch=b_local)
             per_req_skip[name] = skip
             ts_occ[name] = occ_t
-        return (_host(logits), batch_skip, out_spikes, in_spikes,
-                per_req_skip, ts_occ)
+        with span("snn.read"):
+            logits = _host(logits)
+        return (logits, batch_skip, out_spikes, in_spikes, per_req_skip, ts_occ)
 
     def run(self, batch: Sequence[Request]) -> List[Result]:
-        images = torch.stack([torch.as_tensor(r.payload, dtype=torch.float32,
-                                              device=self.device)
-                              for r in batch])
+        with span("snn.stack"):
+            images = torch.stack([torch.as_tensor(r.payload, dtype=torch.float32,
+                                                  device=self.device)
+                                  for r in batch])
         n = len(batch)
         ndev = self._data_shards(n)
         if ndev > 1:
@@ -223,45 +258,46 @@ class SNNRunner:
         # energy is priced with the full-slot plan in both modes, so that a
         # request's Eq. 3 estimate does not change with the shard count
         plan = self.plan(n)
-        energies = [self._energy_estimate(plan, {k: v[i] for k, v in in_spikes.items()})
-                    for i in range(n)]
+        with span("snn.energy"):
+            energies = [self._energy_estimate(plan, {k: v[i] for k, v in in_spikes.items()})
+                        for i in range(n)]
+            # batch-context cost: Eq. 3 priced on the batch's *total* measured
+            # spikes (pad slots are zero images and contribute nothing). A
+            # request's served_energy_j — its share of the batch it actually
+            # rode in — is what a sparsity-aware scheduler improves for sparse
+            # requests: co-batched with dense stragglers, the batch total (and
+            # therefore the share) is dominated by the straggler's spikes.
+            batch_est = self._energy_estimate(
+                plan, {k: float(v.sum()) for k, v in in_spikes.items()})
+        with span("snn.results"):
+            n_real = sum(1 for r in batch if not r.is_pad) or 1
+            batch_stats = {
+                "batch_energy_j": batch_est["energy_j"],
+                "batch_latency_s": batch_est["latency_s"],
+                "batch_real": n_real,
+                "served_energy_j": batch_est["energy_j"] / n_real,
+                # the analytical (per-op) model's view of the same share
+                "served_energy_analytical_j":
+                    batch_est["energy_analytical_j"] / n_real,
+                # active numerics: which weight precision served this request
+                "precision": self.precision,
+                "wbytes_per": self.wbytes_per,
+            }
 
-        # batch-context cost: Eq. 3 priced on the batch's *total* measured
-        # spikes (pad slots are zero images and contribute nothing). A
-        # request's served_energy_j — its share of the batch it actually rode
-        # in — is what a sparsity-aware scheduler improves for sparse
-        # requests: co-batched with dense stragglers, the batch total (and
-        # therefore the share) is dominated by the straggler's spikes.
-        n_real = sum(1 for r in batch if not r.is_pad) or 1
-        batch_est = self._energy_estimate(
-            plan, {k: float(v.sum()) for k, v in in_spikes.items()})
-        batch_stats = {
-            "batch_energy_j": batch_est["energy_j"],
-            "batch_latency_s": batch_est["latency_s"],
-            "batch_real": n_real,
-            "served_energy_j": batch_est["energy_j"] / n_real,
-            # the analytical (per-op) model's view of the same share
-            "served_energy_analytical_j":
-                batch_est["energy_analytical_j"] / n_real,
-            # active numerics: which weight precision served this request
-            "precision": self.precision,
-            "wbytes_per": self.wbytes_per,
-        }
-
-        results = []
-        for i, req in enumerate(batch):
-            results.append(Result(req.request_id, logits[i], stats={
-                "skip_rate": {k: float(v[i]) for k, v in per_req_skip.items()},
-                "batch_skip_rate": batch_skip,
-                "out_spikes": {k: float(v[i]) for k, v in out_spikes.items()},
-                "in_spikes": {k: float(v[i]) for k, v in in_spikes.items()},
-                "spike_total": float(sum(v[i] for v in out_spikes.values())),
-                "ts_occupancy": {k: [float(x) for x in v[:, i]]
-                                 for k, v in ts_occ.items()},
-                **energies[i],
-                **batch_stats,
-            }))
-        return results
+            results = []
+            for i, req in enumerate(batch):
+                results.append(Result(req.request_id, logits[i], stats={
+                    "skip_rate": {k: float(v[i]) for k, v in per_req_skip.items()},
+                    "batch_skip_rate": batch_skip,
+                    "out_spikes": {k: float(v[i]) for k, v in out_spikes.items()},
+                    "in_spikes": {k: float(v[i]) for k, v in in_spikes.items()},
+                    "spike_total": float(sum(v[i] for v in out_spikes.values())),
+                    "ts_occupancy": {k: [float(x) for x in v[:, i]]
+                                     for k, v in ts_occ.items()},
+                    **energies[i],
+                    **batch_stats,
+                }))
+            return results
 
     # -- continuous admission ------------------------------------------------
 
@@ -351,6 +387,7 @@ class _SNNSession:
         occupied = [i for i in range(self.slots) if self.req[i] is not None]
         if not occupied:
             return StepReport()
+        count("snn.fillers", self.slots - len(occupied))
         ref = self.req[occupied[0]]
         batch = [self.req[i] if self.req[i] is not None
                  else self.runner.filler(ref) for i in range(self.slots)]

@@ -7,6 +7,9 @@ equal snapshots, Prometheus text, spans and dumps in both packages. The
 contract: serving the LM and the SNN with a bundle attached gives results
 and admission decisions bit-identical to serving detached, and an engine
 run on the deterministic `StepClock` gives the JAX package's snapshot.
+Step records (the port's own, on ``time.perf_counter``): their spans nest
+as the engine and the runner open them, count the step's fillers, stay out
+of every export, reach a profiler's timeline, and are left open by no step.
 """
 import types
 
@@ -385,3 +388,159 @@ def test_adaptive_snn_bit_identical_with_obs_attached(snn_weights):
     notes = [n for n in bundle.recorder.notes if n["kind"] == "precision"]
     assert [(n["rid"], n["precision"]) for n in notes] == [d[:2] for d in dec_plain]
     assert to_prometheus(snap).count("# TYPE precision_") >= 5
+
+
+# ---------------------------------------------------------------------------
+# Step records: phases inside each engine step (`obs.trace.record_step`)
+# ---------------------------------------------------------------------------
+
+def _tiny_snn_engine(snn_weights, bundle, admission="continuous", runner_cls=SNNRunner):
+    runner = runner_cls(torch_cfgs.TINY, params_from_numpy(snn_weights[0], "cpu"),
+                        device="cpu")
+    return EngineCore(runner, EngineConfig(slots=4, admission=admission),
+                      clock=StepClock(), obs=bundle)
+
+
+def _bench_bundle():
+    """The bundle a benchmark's traced run attaches: the tracer alone."""
+    return Observability(trace=True, metrics=False, recorder=0)
+
+
+@pytest.mark.parametrize("admission", ["continuous", "batch"])
+def test_step_records_leave_serving_bit_identical(snn_weights, admission):
+    imgs = _snn_images(0, torch_cfgs.TINY)
+
+    def serve(bundle):
+        engine = _tiny_snn_engine(snn_weights, bundle, admission)
+        results, log = _snn_serve(engine, imgs)
+        return results, log, engine.stats()
+
+    plain, log_plain, stats_plain = serve(None)
+    bundle = _bench_bundle()
+    observed, log_obs, stats_obs = serve(bundle)
+    for a, b in zip(observed, plain):
+        assert a.status == b.status == "ok"
+        assert np.array_equal(a.outputs, b.outputs)
+        assert dict(a.stats) == dict(b.stats)
+    assert log_obs == log_plain and stats_obs == stats_plain
+    steps = list(bundle.tracer.steps)
+    assert [s.step for s in steps] == list(range(stats_plain["steps_run"]))
+    for s in steps:
+        assert s.start_s <= s.end_s
+        assert {"engine.step", "engine.admit", "engine.session_step", "engine.retire",
+                "snn.stack", "snn.forward", "snn.read", "snn.skip_split",
+                "snn.ts_occupancy", "snn.energy", "snn.results"} <= set(s.seconds)
+        assert s.device_ms == {}                # no device marks on the CPU
+    # step records stay out of every export the JAX package's bundle has
+    assert not any(s["name"].startswith(("engine.", "snn.")) for s in bundle.tracer.export())
+    assert set(bundle.snapshot()) == {"trace"}
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+def test_step_record_spans_nest(snn_weights, shards):
+    """The same spans on the unsharded and the data-mesh path."""
+    from repro_torch.dist.context import compute_mesh
+    from repro_torch.launch.mesh import make_data_mesh
+    bundle = _bench_bundle()
+    with compute_mesh(make_data_mesh(shards, "cpu")):
+        _snn_serve(_tiny_snn_engine(snn_weights, bundle), _snn_images(1, torch_cfgs.TINY))
+    step, = bundle.tracer.steps
+    assert step.parent["engine.step"] is None
+    children = [n for n, p in step.parent.items() if p == "engine.step"]
+    assert set(children) == {"engine.admit", "engine.session_step", "engine.screen",
+                             "engine.retire"}
+    assert step.seconds["engine.step"] >= sum(step.seconds[n] for n in children)
+    runner_spans = [n for n in step.parent if n.startswith("snn.")]
+    assert len(runner_spans) == 7
+    assert all(step.parent[n] == "engine.session_step" for n in runner_spans)
+    assert step.seconds["engine.session_step"] >= sum(step.seconds[n] for n in runner_spans)
+
+
+def test_step_record_counts_fillers(snn_weights):
+    bundle = _bench_bundle()
+    engine = _tiny_snn_engine(snn_weights, bundle)
+    _snn_serve(engine, _snn_images(0, torch_cfgs.TINY))     # 3 requests on 4 slots
+    step, = bundle.tracer.steps
+    assert step.counters == {"snn.fillers": 1}
+    assert step.device_ms == {}
+
+
+def test_step_ring_is_bounded():
+    from repro_torch.obs.trace import STEP_RING, count
+    tracer = Tracer()
+    for k in range(STEP_RING + 5):
+        with tracer.record_step(k):
+            count("n", k)
+    assert len(tracer.steps) == STEP_RING
+    assert [s.step for s in (tracer.steps[0], tracer.steps[-1])] == [5, STEP_RING + 4]
+    assert tracer.steps[-1].counters == {"n": STEP_RING + 4}
+    assert tracer.export() == [] and tracer.drain() == []
+
+
+def test_latest_steps_follows_the_tracer_that_stepped_last():
+    from repro_torch.obs.trace import latest_steps
+    first, second = Tracer(), Tracer()
+    with first.record_step(0):
+        pass
+    assert latest_steps() is first.steps
+    with second.record_step(0):
+        pass
+    with second.record_step(1):
+        pass
+    assert latest_steps() is second.steps
+    assert [s.step for s in latest_steps()] == [0, 1]
+
+
+class _RecordingRunner(SNNRunner):
+    """Notes the step record open while it runs; raises when told to."""
+    seen = []
+    fail = False
+
+    def run(self, batch):
+        from repro_torch.obs import trace
+        type(self).seen.append(trace._OPEN.get())
+        if type(self).fail:
+            raise RuntimeError("runner fault")
+        return super().run(batch)
+
+
+def test_no_step_record_without_a_tracer_and_none_left_open(snn_weights, monkeypatch):
+    from repro_torch.obs import trace
+    monkeypatch.setattr(_RecordingRunner, "seen", [])
+    _snn_serve(_tiny_snn_engine(snn_weights, None, runner_cls=_RecordingRunner),
+               _snn_images(0, torch_cfgs.TINY))
+    _snn_serve(_tiny_snn_engine(snn_weights, Observability(trace=False),
+                                runner_cls=_RecordingRunner), _snn_images(0, torch_cfgs.TINY))
+    assert _RecordingRunner.seen == [None, None]
+    assert trace._OPEN.get() is None
+
+    bundle = _bench_bundle()
+    engine = _tiny_snn_engine(snn_weights, bundle, runner_cls=_RecordingRunner)
+    monkeypatch.setattr(_RecordingRunner, "fail", True)
+    engine.submit(_snn_images(0, torch_cfgs.TINY)[1])
+    with pytest.raises(RuntimeError, match="runner fault"):
+        engine.step()
+    assert _RecordingRunner.seen[-1] is not None    # open while the runner ran
+    assert trace._OPEN.get() is None                # and reset by the fault
+    step, = bundle.tracer.steps
+    assert step.end_s is not None and "snn.forward" not in step.seconds
+
+
+def test_step_spans_reach_the_profiler(snn_weights):
+    from torch.profiler import ProfilerActivity, profile, record_function
+    engine = _tiny_snn_engine(snn_weights, _bench_bundle())
+    for img in _snn_images(0, torch_cfgs.TINY):
+        engine.submit(img)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function("caller"):
+            engine.step()
+    events = {}
+    for e in prof.events():
+        events.setdefault(e.name, e)
+    inside = lambda inner, outer: (outer.time_range.start <= inner.time_range.start
+                                   and inner.time_range.end <= outer.time_range.end)
+    for name in ("engine.step", "engine.admit", "engine.session_step", "engine.retire",
+                 "snn.forward", "snn.skip_split", "snn.energy"):
+        assert name in events and inside(events[name], events["caller"]), name
+    assert inside(events["snn.skip_split"], events["engine.session_step"])
+    assert inside(events["engine.session_step"], events["engine.step"])
