@@ -13,7 +13,10 @@ out per request:
 * tile-skip rates — each request's rows of the folded [T*B·H·W, K] matmul
   re-tiled at the layer's block size, i.e. the skip rate the occupancy map
   would deliver if the request were served alone (a tile straddling two
-  images never bills the silent one);
+  images never bills the silent one), and each request's active-row
+  fraction per timestep. Both are reduced on the occupancy map's own device
+  to integer counts ([B] busy tiles, [T, B] active rows per layer); only
+  those counts cross to the host, where the rates are formed in float64;
 * paper-model energy — Eq. 3 workloads built from each request's *measured*
   input-spike counts, priced with the plan's NC allocation and the FPGA
   power model (`core.energy.energy_per_image`).
@@ -40,9 +43,12 @@ tracer is attached; the same names on the sharded path), all beneath
   unless a caller wraps the call with synchronizes (the benchmark's traced
   runs do), when it holds the device's work too;
 * ``snn.read`` — every read of a device value to the host (``_host``,
-  ``float``, ``int``), the wait for the device included;
-* ``snn.skip_split`` — `_per_request_skip`;
-* ``snn.ts_occupancy`` — `_per_timestep_occupancy`;
+  ``float``, ``int``), the wait for the device included: the occupancy
+  reductions' wait and their counts' one copy fall here;
+* ``snn.skip_split`` — `_per_request_skip`, which enqueues the per-request
+  busy-tile reduction on the device;
+* ``snn.ts_occupancy`` — `_per_timestep_occupancy`, which enqueues the
+  per-timestep active-row reduction on the device;
 * ``snn.energy`` — every `SNNRunner._energy_estimate` call;
 * ``snn.results`` — building the `Result`s.
 
@@ -52,7 +58,7 @@ step (`_SNNSession.step`). The pipeline marks its layers on the device
 """
 from __future__ import annotations
 
-from typing import Dict, Hashable, List, Optional, Sequence
+from typing import Dict, Hashable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -83,45 +89,84 @@ def _spikes_per_image(stats) -> tuple:
     return out_spikes, in_spikes
 
 
-def _per_request_skip(row_occ: np.ndarray, block_m: int, rows: int,
-                      rows_per_slice: int, batch: int) -> np.ndarray:
-    """Split a folded layer's occupancy back out per request.
+def _per_request_skip(row_occ: torch.Tensor, block_m: int, rows: int,
+                      rows_per_slice: int, batch: int) -> Tuple[torch.Tensor, int]:
+    """Split a folded layer's occupancy back out per request -> (busy, tiles).
 
     row_occ: [M_pad, K/bk] 0/1 spike occupancy at (row x k-tile) granularity,
-    rows ordered (t*batch + b)*rows_per_slice + pixel. For each request we
-    gather *its own* rows (in folded order — the order a solo run would fold
-    them) and re-tile them at the layer's block_m: the returned skip rate is
-    the fraction of (block_m x block_k) tiles the occupancy map would skip if
-    the request were served alone with the same kernel plan. This makes the
-    per-request number independent of who shares a straddled tile — a silent
-    request reports exactly 1.0 next to a dense neighbour — which is the
-    intrinsic sparsity signal a co-batching scheduler needs.
+    rows ordered (t*batch + b)*rows_per_slice + pixel. Each request's *own*
+    rows (in folded order — the order a solo run would fold them) are re-tiled
+    at the layer's block_m: ``busy`` (int64 [batch], on row_occ's device)
+    counts the (block_m x block_k) tiles that hold a spike if the request were
+    served alone with the same kernel plan, out of ``tiles`` per request, and
+    its skip rate is ``1.0 - busy / tiles`` (`_split_occupancy`). This makes
+    the per-request number independent of who shares a straddled tile — a
+    silent request reports exactly 1.0 next to a dense neighbour — which is
+    the intrinsic sparsity signal a co-batching scheduler needs.
+
+    One reduction for the whole batch, enqueued on row_occ's device: the rows
+    viewed [T, batch, rps, kt] go batch-first ([batch, T*rps, kt]: a request's
+    rows in solo-fold order), are zero-padded to a multiple of block_m (a tile
+    may straddle timesteps), OR-ed over each block_m group and counted.
     """
     kt = row_occ.shape[1]
-    owner = (np.arange(rows) // rows_per_slice) % batch  # folded slice -> request
-    skip = np.zeros(batch)
-    for b in range(batch):
-        rb = row_occ[:rows][owner == b]                  # [T*rows_per_slice, kt]
-        pad = (-len(rb)) % block_m
-        if pad:
-            rb = np.concatenate([rb, np.zeros((pad, kt), rb.dtype)])
-        occ = rb.reshape(-1, block_m, kt).any(axis=1)
-        skip[b] = 1.0 - occ.sum() / occ.size
-    return skip
+    t = rows // (batch * rows_per_slice)
+    own = row_occ[:rows].view(t, batch, rows_per_slice, kt).transpose(0, 1)
+    own = own.reshape(batch, t * rows_per_slice, kt)
+    pad = (-t * rows_per_slice) % block_m
+    if pad:
+        own = torch.nn.functional.pad(own, (0, 0, 0, pad))
+    busy = own.view(batch, -1, block_m, kt).any(dim=2).sum(dim=(1, 2))
+    return busy, own.shape[1] // block_m * kt
 
 
-def _per_timestep_occupancy(row_occ: np.ndarray, rows: int,
-                            rows_per_slice: int, batch: int) -> np.ndarray:
-    """Per-request per-timestep active-row fraction, [T, B].
+def _per_timestep_occupancy(row_occ: torch.Tensor, rows: int,
+                            rows_per_slice: int, batch: int) -> torch.Tensor:
+    """Per-request per-timestep active rows, int64 [T, B] on row_occ's device.
 
     Rows of the folded matmul are ordered (t*batch + b)*rows_per_slice +
     pixel, so slicing the 0/1 row occupancy back out by (t, b) gives each
     request's sparsity *trace over timesteps* — the per-timestep stat the
     engine streams through `poll_partial` while a request is in flight.
+    Each count is of the rows with a spike in any k tile; the active-row
+    fraction is ``active / rows_per_slice`` (`_split_occupancy`).
     """
-    active = row_occ[:rows].any(axis=1).astype(np.float64)
     t = rows // (batch * rows_per_slice)
-    return active.reshape(t, batch, rows_per_slice).mean(axis=2)
+    return row_occ[:rows].any(dim=1).view(t, batch, rows_per_slice).sum(dim=2)
+
+
+def _split_occupancy(layers: Sequence[tuple], n: int,
+                     t: int) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+    """Per-request skip rates (float64 [n]) and per-timestep occupancy
+    (float64 [T, n]) of every mapped layer, by layer name.
+
+    layers: ``(name, row_occ, rows, block_m, rows_per_slice, first)`` per
+    occupancy map, whose requests are ``[first, first + rows / (T *
+    rows_per_slice))`` of the ``n`` (one map per layer, or one per shard of a
+    layer). Every map's reductions are enqueued first; their integer counts
+    then cross to the host in one copy, and the rates are formed there.
+    """
+    pending = []
+    for name, row_occ, rows, block_m, rps, first in layers:
+        b = rows // (t * rps)
+        with span("snn.skip_split"):
+            busy, tiles = _per_request_skip(row_occ, block_m, rows, rows_per_slice=rps, batch=b)
+        with span("snn.ts_occupancy"):
+            active = _per_timestep_occupancy(row_occ, rows, rows_per_slice=rps, batch=b)
+        pending.append((name, slice(first, first + b), busy, tiles, active, rps))
+    with span("snn.read"):
+        counts = _host(torch.cat([c.reshape(-1) for _, _, busy, _, active, _ in pending
+                                  for c in (busy, active)]))
+    skip: Dict[str, np.ndarray] = {}
+    occ: Dict[str, np.ndarray] = {}
+    at = 0
+    for name, sl, busy, tiles, active, rps in pending:
+        b = busy.numel()
+        skip.setdefault(name, np.zeros(n))[sl] = 1.0 - counts[at:at + b] / tiles
+        at += b
+        occ.setdefault(name, np.zeros((t, n)))[:, sl] = counts[at:at + t * b].reshape(t, b) / rps
+        at += t * b
+    return skip, occ
 
 
 class SNNRunner:
@@ -164,22 +209,16 @@ class SNNRunner:
                           if "skip_rate" in v}
             out_spikes, in_spikes = _spikes_per_image(stats)
 
-        per_req_skip: Dict[str, np.ndarray] = {}
-        ts_occ: Dict[str, np.ndarray] = {}
+        t = self.cfg.timesteps
+        layers = []
         for name, st in stats.items():
             if "occ_map" not in st:
                 continue
-            ks = plan.layer(name).kernel
-            rps = ks.m // (self.cfg.timesteps * n)
             with span("snn.read"):
-                row_occ = _host(st["row_occ"])
                 rows, block_m = int(st["rows"]), int(st["block_m"])
-            with span("snn.skip_split"):
-                per_req_skip[name] = _per_request_skip(
-                    row_occ, block_m, rows, rows_per_slice=rps, batch=n)
-            with span("snn.ts_occupancy"):
-                ts_occ[name] = _per_timestep_occupancy(
-                    row_occ, rows, rows_per_slice=rps, batch=n)
+            layers.append((name, st["row_occ"], rows, block_m,
+                           plan.layer(name).kernel.m // (t * n), 0))
+        per_req_skip, ts_occ = _split_occupancy(layers, n, t)
         with span("snn.read"):
             logits = _host(logits)
         return (logits, batch_skip, out_spikes, in_spikes, per_req_skip, ts_occ)
@@ -199,11 +238,12 @@ class SNNRunner:
 
         Per-image spike vectors come back shard-concatenated (already
         global); occupancy maps come back stacked per shard, so per-request
-        skip rates and occupancy traces are computed shard by shard — shard
-        ``d`` owns requests ``[d*n/ndev, (d+1)*n/ndev)`` — into the global
-        vectors. They equal the unsharded run's: rows_per_slice and the
-        sparse M tile do not depend on the batch size, so re-tiling a
-        request's own rows gives the same served-alone skip rate."""
+        skip rates and occupancy traces are reduced shard by shard on the
+        device — shard ``d`` owns requests ``[d*n/ndev, (d+1)*n/ndev)`` — and
+        placed into the global vectors. They equal the unsharded run's:
+        rows_per_slice and the sparse M tile do not depend on the batch size,
+        so re-tiling a request's own rows gives the same served-alone skip
+        rate."""
         b_local = n // ndev
         plan = self.plan(b_local)
         with span("snn.forward"):
@@ -215,28 +255,17 @@ class SNNRunner:
                           if "skip_rate" in v}
             out_spikes, in_spikes = _spikes_per_image(stats)
 
-        per_req_skip: Dict[str, np.ndarray] = {}
-        ts_occ: Dict[str, np.ndarray] = {}
         t = self.cfg.timesteps
+        layers = []
         for name, st in stats.items():
             if "occ_map" not in st:
                 continue
             rps = plan.layer(name).kernel.m // (t * b_local)
             with span("snn.read"):
-                row_occ, rows, block_m = (_host(st["row_occ"]), _host(st["rows"]),
-                                          _host(st["block_m"]))
-            skip = np.zeros(n)
-            occ_t = np.zeros((t, n))
-            for d in range(ndev):
-                sl = slice(d * b_local, (d + 1) * b_local)
-                with span("snn.skip_split"):
-                    skip[sl] = _per_request_skip(row_occ[d], int(block_m[d]), int(rows[d]),
-                                                 rows_per_slice=rps, batch=b_local)
-                with span("snn.ts_occupancy"):
-                    occ_t[:, sl] = _per_timestep_occupancy(row_occ[d], int(rows[d]),
-                                                           rows_per_slice=rps, batch=b_local)
-            per_req_skip[name] = skip
-            ts_occ[name] = occ_t
+                rows, block_m = _host(st["rows"]), _host(st["block_m"])
+            layers += [(name, st["row_occ"][d], int(rows[d]), int(block_m[d]), rps, d * b_local)
+                       for d in range(ndev)]
+        per_req_skip, ts_occ = _split_occupancy(layers, n, t)
         with span("snn.read"):
             logits = _host(logits)
         return (logits, batch_skip, out_spikes, in_spikes, per_req_skip, ts_occ)
